@@ -1,0 +1,108 @@
+"""Sorted-key indexes and per-column statistics (host side).
+
+Port copy of ``repro.core.index`` (plus ``catalog_util.as_tuple``).  An
+index over ``(relation, key)`` is ``(perm, sorted_vals)``: the argsort
+permutation and the key column in sorted order.  Every host probe (``lo/hi``
+range per query), degree lookup and EW aggregation reduces to
+``np.searchsorted`` over these arrays; the device engine builds its own
+int32 copies (:mod:`repro_torch.core.backends.torch_backend`) and probes
+them with the CUDA kernels of :mod:`repro_torch.kernels.probe`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence, Tuple, Union
+
+import numpy as np
+
+from .relation import Relation
+
+
+def as_tuple(x: Union[str, Sequence[str], None]) -> Tuple[str, ...]:
+    if x is None:
+        return ()
+    if isinstance(x, str):
+        return (x,)
+    return tuple(x)
+
+
+@dataclasses.dataclass
+class SortedIndex:
+    """Sorted index of one (possibly composite) key column of a relation."""
+
+    relation: str
+    key_attrs: Tuple[str, ...]
+    perm: np.ndarray          # (n,) int64 row ids in sorted key order
+    sorted_vals: np.ndarray   # (n,) int64 sorted keys
+
+    def ranges(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-query [lo, hi) positions in the sorted order."""
+        q = np.asarray(queries)
+        lo = np.searchsorted(self.sorted_vals, q, side="left")
+        hi = np.searchsorted(self.sorted_vals, q, side="right")
+        return lo, hi
+
+    def row_ids_at(self, pos: np.ndarray) -> np.ndarray:
+        """Row ids of sorted positions (for gathering matched rows)."""
+        return self.perm[np.asarray(pos)]
+
+    @property
+    def nrows(self) -> int:
+        return int(self.sorted_vals.shape[0])
+
+    def value_counts(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(unique values, per-value degree) — the exact 'histogram'."""
+        vals, counts = np.unique(self.sorted_vals, return_counts=True)
+        return vals, counts
+
+    def max_degree(self) -> int:
+        if self.nrows == 0:
+            return 0
+        _, counts = self.value_counts()
+        return int(counts.max())
+
+
+def build_index(rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:
+    key = rel.key(list(key_attrs))
+    perm = np.argsort(key, kind="stable")
+    return SortedIndex(rel.name, tuple(key_attrs), perm.astype(np.int64),
+                       key[perm])
+
+
+@dataclasses.dataclass
+class ColumnStats:
+    distinct: int
+    max_degree: int
+    avg_degree: float
+    # exact per-value histogram (what a DBMS histogram approximates)
+    hist_values: np.ndarray
+    hist_counts: np.ndarray
+
+
+class Catalog:
+    """Caches sorted indexes and column statistics."""
+
+    def __init__(self) -> None:
+        self._indexes: Dict[Tuple[str, Tuple[str, ...]], SortedIndex] = {}
+        self._stats: Dict[Tuple[str, Tuple[str, ...]], ColumnStats] = {}
+
+    def index(self, rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:
+        k = (rel.name, tuple(key_attrs))
+        if k not in self._indexes:
+            self._indexes[k] = build_index(rel, key_attrs)
+        return self._indexes[k]
+
+    def stats(self, rel: Relation, key_attrs: Sequence[str]) -> ColumnStats:
+        k = (rel.name, tuple(key_attrs))
+        if k not in self._stats:
+            idx = self.index(rel, key_attrs)
+            vals, counts = idx.value_counts()
+            self._stats[k] = ColumnStats(
+                distinct=int(vals.shape[0]),
+                max_degree=int(counts.max()) if counts.shape[0] else 0,
+                avg_degree=float(counts.mean()) if counts.shape[0] else 0.0,
+                hist_values=vals,
+                hist_counts=counts,
+            )
+        return self._stats[k]

@@ -1,0 +1,25 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes an explicit ``device``.  ``None`` means the card:
+the port never falls back to the CPU on its own, so a missing card is an
+error unless the caller asked for ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` → ``cuda``; raise when CUDA is asked for and unavailable."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: CUDA device requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"repro_torch: unsupported device {dev}")
+    return dev

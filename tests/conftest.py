@@ -59,3 +59,8 @@ def brute_force_join(spec: JoinSpec):
                     out.append(m)
         rows = out
     return rows
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")

@@ -1,0 +1,56 @@
+"""The port stands alone: no module of ``src/repro_torch`` imports ``jax``
+or anything of ``repro``, and its entry points need the card unless the
+caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device"])
+def test_entry_points_raise_without_a_card(monkeypatch, entry):
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.data.workloads import uq1
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = uq1(scale=0.05, overlap=0.4, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "set_union_sampler":
+            est = estimate_union(warmup(wl.cat, wl.joins,
+                                        method="histogram").oracle)
+            SetUnionSampler(wl.cat, wl.joins, est.cover, backend="torch")
+        elif entry == "backend":
+            TorchBackend(wl.cat, wl.joins)
+        else:
+            resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
