@@ -23,8 +23,23 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    earlier piece (checked on the host against the base relations, sharing
    no code with the engine), and home frequencies follow the cover's
    selection law;
-5. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``);
-6. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
+5. kernel entry point (``[ops]``) — ``repro_torch.kernels.ops`` driven on
+   the card with the launch counts set to 0 just before and read just after
+   (> 0 for every kernel): ``segdegree`` on every sorted key column of
+   UQ1_J0, on 60,000,000 TPC-H SF 10 ``l_orderkey`` values built on the card
+   and on an all-equal column of the same size (exact against the plain
+   version); ``decode_attention`` at gemma-2-9b's widths (B 8, S 8192, 16
+   query and 8 KV heads, D 256, bf16, softcap 50) for a global and a local
+   (window 4096) layer, and a global layer whose logits reach the
+   softcap's range (within rtol 1e-2, atol 1e-3 of the plain version in
+   fp32; the kernel at softcap 0 must fail that limit on the last);
+   ``searchsorted``, ``walk_hop`` and ``ranged_weighted_pick`` equal to the
+   same calls on CPU tensors.  Edge sweeps of both new kernels, and times
+   against the bound, the plain version and the library call
+   (``torch.unique_consecutive``; ``scaled_dot_product_attention`` at
+   softcap 0);
+6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``);
+7. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
    exact union (chi-square), on the card.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -50,6 +65,15 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # H100 SXM published peaks (NVIDIA data sheet; rates assume the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # non-tensor 32-bit rate, used for int compares
+BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core rate
+
+# gemma-2-9b's attention widths (src/repro/configs/gemma2_9b.py:8-11) and
+# its context length; a batch of 8 decoding requests
+GEMMA2_9B = {"H": 16, "KVH": 8, "D": 256, "softcap": 50.0, "window": 4096}
+ATTN_BATCH, ATTN_SEQ = 8, 8192
+# l_orderkey at TPC-H SF 10: 15 M orders of 1-7 lines each, ~60 M lines
+SF10_LINES = 60_000_000
+I64_MAX = np.iinfo(np.int64).max
 
 
 def _card_line() -> str:
@@ -162,26 +186,17 @@ def _max_abs_err(a, b) -> int:
 
 
 def phase_edge_sweeps() -> int:
-    """Kernel vs plain on the edge cases; returns the number of cases."""
+    """Kernel vs plain on the shared edge cases and one large case; returns
+    the number of cases."""
     import torch
     from repro_torch.kernels import probe
+    from repro_torch.kernels.cases import PROBE_CASES, key_dtypes, probe_case
     rng = np.random.default_rng(0)
-    cases = [
-        (np.repeat(np.arange(5), 200), np.arange(-1, 7)),         # runs
-        (np.zeros(0, np.int64), np.array([-1, 0, 5])),             # empty keys
-        (np.sort(rng.integers(100, 200, 300)),
-         np.array([-5, 0, 99, 100, 150, 199, 200, 10**6])),         # outside
-        (np.sort(rng.integers(-2**45, 2**45, 5000)),
-         rng.integers(-2**46, 2**46, 3000)),                        # int64
-        (np.array([7]), np.array([6, 7, 8])),                       # d = 0, 1
+    cases = [probe_case(name) for name in PROBE_CASES] + [
         (np.sort(rng.integers(0, 1000, 1 << 20)),
-         rng.integers(-10, 1010, 100_000)),                         # large
-    ]
+         rng.integers(-10, 1010, 100_000))]                         # large
     for keys, qs in cases:
-        dts = [torch.int64]
-        if keys.size == 0 or np.abs(np.concatenate([keys, qs])).max() < 2**31:
-            dts.append(torch.int32)
-        for dt in dts:
+        for dt in key_dtypes(keys, qs):
             k = torch.as_tensor(np.asarray(keys, np.int64), device="cuda").to(dt)
             q = torch.as_tensor(np.asarray(qs, np.int64), device="cuda").to(dt)
             u = torch.rand(q.shape[0], device="cuda")
@@ -429,6 +444,266 @@ def phase_profile(sampler, round_batch: int, wall_s_per_call: float) -> dict:
     }
 
 
+def _lineitem_orderkeys(n: int, seed: int):
+    """TPC-H ``l_orderkey`` built on the card: orders numbered as dbgen
+    numbers them (the first 8 of every 32 keys), 1-7 lines each, uniform;
+    the first ``n`` lines, sorted int64."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n_orders = n // 4 + 100_000                 # 4 lines per order on average
+    lines = torch.randint(1, 8, (n_orders,), generator=g, device="cuda")
+    i = torch.arange(n_orders, device="cuda")
+    keys = torch.repeat_interleave((i // 8) * 32 + i % 8 + 1, lines)
+    if keys.numel() < n:
+        raise AssertionError(f"only {keys.numel()} lines drawn for {n}")
+    return keys[:n].contiguous()
+
+
+def _segdegree_bound(keys):
+    """Each key read once (bytes) against one compare per key at the 32-bit
+    ALU rate (two for an int64 key).  Returns (ms, bound_by)."""
+    t_bytes = keys.numel() * keys.element_size() / HBM_BYTES_PER_S * 1e3
+    t_ops = keys.numel() * keys.element_size() / 4 / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attention_bound(q, k, lengths, window: int):
+    """Bytes: q, lengths and the output once, and each K and V row that the
+    masks keep once; operations: 4·D flops per kept (row, query head) at the
+    bf16 tensor-core rate for bf16 inputs (fp32 otherwise).  Returns
+    (ms, bound_by)."""
+    import torch
+    B, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    lens = lengths.long().clamp(min=0)
+    lo = (lens - window).clamp(min=0) if window > 0 else torch.zeros_like(lens)
+    kept = int((lens.clamp(max=S) - lo).clamp(min=0).sum())
+    nbytes = (2 * kept * KVH * D * k.element_size()
+              + 2 * B * H * D * q.element_size()
+              + lengths.numel() * lengths.element_size())
+    rate = BF16_OPS_PER_S if k.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kept * H * 4 * D / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ops_sweeps() -> dict:
+    """The two new kernels against their plain versions on the shared edge
+    cases (``repro_torch.kernels.cases``): segdegree exact (int64, and int32
+    where the keys fit); decode attention within ``attention_tol`` of the
+    plain version in fp32 from the same inputs."""
+    import torch
+    from repro_torch.kernels import attention, segdegree
+    from repro_torch.kernels.cases import (ATTENTION_CASES,
+                                           SEGDEGREE_CARD_CASES,
+                                           SEGDEGREE_CASES, attention_case,
+                                           attention_tol, key_dtypes,
+                                           segdegree_keys)
+    n_seg = 0
+    for name in SEGDEGREE_CASES + SEGDEGREE_CARD_CASES:
+        keys = segdegree_keys(name)
+        for dt in key_dtypes(keys):
+            kt = torch.as_tensor(keys, device="cuda").to(dt)
+            got, want = segdegree.segdegree(kt), segdegree.segdegree_plain(kt)
+            if got != want:
+                raise AssertionError(f"segdegree {name} {dt}: kernel {got} "
+                                     f"!= plain {want}")
+            n_seg += 1
+    errs = {}
+    for name in ATTENTION_CASES:
+        c = attention_case(name)
+        dt, cap, win = c["dtype"], c["softcap"], c["window"]
+        q, k, v = (torch.as_tensor(c[x], device="cuda").to(dt) for x in "qkv")
+        lens = torch.as_tensor(c["lens"], device="cuda")
+        out = attention.decode_attention(q, k, v, lens, softcap=cap,
+                                         window=win)
+        want = attention.decode_attention_plain(q.float(), k.float(),
+                                                v.float(), lens, softcap=cap,
+                                                window=win)
+        torch.testing.assert_close(out.float(), want, **attention_tol(dt))
+        errs[name] = float((out.float() - want).abs().max())
+    torch.cuda.synchronize()
+    return {"segdegree_cases": n_seg, "attention_cases": len(errs),
+            "attention_max_abs_err": errs}
+
+
+def _excess(got, want, tol) -> float:
+    """The largest amount by which |got - want| exceeds atol + rtol·|want|
+    (negative when every element is inside the limit)."""
+    return float(((got.float() - want).abs()
+                  - (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def phase_ops(sampler, seed: int):
+    """Drive ``repro_torch.kernels.ops`` on the card with the launch counts
+    set to 0 just before and read just after (every kernel must launch);
+    check what came out; time ``segdegree`` and ``decode_attention``.
+    Decode attention runs a global and a local layer with q of std 1 (logits
+    of std 1), and a global layer with q of std softcap / 2, where tanh
+    bends the logits; a control, the same kernel at softcap 0, must fail
+    the tolerance there.  Returns (kernel rows, summary)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, build, ops, segdegree
+    from repro_torch.kernels.cases import attention_tol
+
+    tree = sampler.backend.trees[sampler.order[0]]
+    cols = list(tree.sorted_keys)
+    big = _lineitem_orderkeys(SF10_LINES, seed)
+    same = torch.full_like(big, I64_MAX)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    cfg = GEMMA2_9B
+    B, S, H, KVH, D = ATTN_BATCH, ATTN_SEQ, cfg["H"], cfg["KVH"], cfg["D"]
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+               for s in ((B, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    lens = torch.randint(S // 2, S + 1, (B,), generator=g, device="cuda")
+    # B1 and B2 through ops: the lineitem index with one piece batch of real
+    # queries; the weighted pick over 2^20 prefix sums
+    i_u = max((i for i, c in enumerate(tree.node_cfgs) if c.uniform),
+              key=lambda i: tree.sorted_keys[i].numel())
+    lk = tree.sorted_keys[i_u]
+    lq = _node_queries(tree, i_u, sampler.engine.piece_batches[0])
+    lu = torch.rand(lq.shape, generator=g, device="cuda")
+    w = torch.rand(1 << 20, generator=g, device="cuda", dtype=torch.float64)
+    w[torch.rand(w.shape, generator=g, device="cuda") < 0.3] = 0.0
+    cs = torch.cat([w.new_zeros(1), w.cumsum(0)])
+    plo = torch.randint(0, w.numel() - 50, (8192,), generator=g, device="cuda")
+    phi = plo + torch.randint(1, 50, (8192,), generator=g, device="cuda")
+    pu = torch.rand(8192, generator=g, device="cuda", dtype=torch.float64)
+    q_cap = (torch.randn((B, H, D), generator=g, device="cuda")
+             * (cfg["softcap"] / 2)).to(torch.bfloat16)
+    layers = {"global": (q, 0), "local": (q, cfg["window"]),
+              "global_softcap_range": (q_cap, 0)}
+    torch.cuda.synchronize()
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    degrees = [ops.segdegree(c) for c in cols + [big, same]]
+    att = {name: ops.decode_attention(qq, k, v, lens, softcap=cfg["softcap"],
+                                      window=win)
+           for name, (qq, win) in layers.items()}
+    ss = ops.searchsorted(lk, lq)
+    wh = ops.walk_hop(lk, lq, lu)
+    rp = ops.ranged_weighted_pick(cs, plo, phi, pu)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"[ops] kernels not launched on the ops path: "
+                             f"{missing}")
+
+    # what came out
+    for c, got in zip(cols + [big, same], degrees):
+        if got != segdegree.segdegree_plain(c):
+            raise AssertionError(f"[ops] segdegree of {c.numel()} keys: "
+                                 f"{got} != plain")
+    if degrees[-1] != (1, SF10_LINES):
+        raise AssertionError(f"[ops] all-equal column gave {degrees[-1]}")
+    tol = attention_tol(torch.bfloat16)
+    att_err, nocap_excess = {}, {}
+    for name, out in att.items():
+        qq, win = layers[name]
+        want = attention.decode_attention_plain(
+            qq.float(), k.float(), v.float(), lens, softcap=cfg["softcap"],
+            window=win)
+        torch.testing.assert_close(out.float(), want, **tol)
+        att_err[name] = float((out.float() - want).abs().max())
+        if win == 0:
+            # control: the kernel without the softcap, against the same limit
+            nocap = attention.decode_attention(qq, k, v, lens, window=win)
+            nocap_excess[name] = _excess(nocap, want, tol)
+        del want
+    if nocap_excess["global_softcap_range"] <= 0:
+        raise AssertionError("[ops] the attention tolerance does not tell a "
+                             "kernel without the softcap from the right one")
+
+    def on_cpu(*ts):
+        return [t.cpu() for t in ts]
+    _check_equal(on_cpu(*ss), ops.searchsorted(*on_cpu(lk, lq), device="cpu"),
+                 "[ops] searchsorted on the card vs on the CPU")
+    _check_equal(on_cpu(*wh), ops.walk_hop(*on_cpu(lk, lq, lu), device="cpu"),
+                 "[ops] walk_hop on the card vs on the CPU")
+    _check_equal(on_cpu(rp), [ops.ranged_weighted_pick(
+        *on_cpu(cs, plo, phi, pu), device="cpu")],
+        "[ops] ranged_weighted_pick on the card vs on the CPU")
+
+    # segdegree: the SF 10 column; the all-equal column and the UQ1 lineitem
+    # index beside it
+    i_big = len(cols)
+    b_ms, b_by = _segdegree_bound(big)
+    seg_row = {
+        "name": "segdegree", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segdegree.cu",
+        "replaces": "src/repro/kernels/segdegree.py:30",
+        "launches": launches["segdegree"], "path": "ops", "max_abs_err": 0,
+        "ms": _device_ms(lambda: segdegree.segdegree(big), reps=50),
+        "plain_ms": _device_ms(lambda: segdegree.segdegree_plain(big),
+                               reps=5, warm=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _device_ms(
+            lambda: torch.unique_consecutive(big, return_counts=True),
+            reps=5, warm=2),
+        "n_keys": big.numel(), "distinct": degrees[i_big][0],
+        "max_degree": degrees[i_big][1],
+        "all_equal_ms": _device_ms(lambda: segdegree.segdegree(same), reps=50),
+        "lineitem_n_keys": lk.numel(),
+        "lineitem_ms": _device_ms(lambda: segdegree.segdegree(lk), reps=50),
+        "lineitem_bound_ms": _segdegree_bound(lk)[0],
+        "lineitem_library_ms": _device_ms(
+            lambda: torch.unique_consecutive(lk, return_counts=True), reps=20),
+        "uq1_columns": [[c.numel()] + list(d) for c, d in zip(cols, degrees)],
+    }
+
+    # decode attention: the global layer; the local layer and softcap 0
+    # beside it, and the library at softcap 0 (no PyTorch call applies a
+    # softcap) with K/V in its own (B, KVH, S, D) layout
+    def kern(win=0, cap=cfg["softcap"]):
+        return attention.decode_attention(q, k, v, lens, softcap=cap,
+                                          window=win)
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    def library():
+        return F.scaled_dot_product_attention(q.unsqueeze(2), kt, vt,
+                                              attn_mask=mask, enable_gqa=True)
+    lib_diff = float((library().squeeze(2).float()
+                      - kern(cap=0.0).float()).abs().max())
+    a_ms, a_by = _attention_bound(q, k, lens, 0)
+    splits = build.load().repro_decode_attention_splits(
+        B, S, KVH, torch.cuda.get_device_properties(0).multi_processor_count)
+    att_row = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention.py:32",
+        "launches": launches["decode_attention"], "path": "ops",
+        "max_abs_err": max(att_err.values()),
+        "ms": _device_ms(kern, reps=50),
+        "plain_ms": _device_ms(lambda: attention.decode_attention_plain(
+            q, k, v, lens, softcap=cfg["softcap"]), reps=5, warm=2),
+        "bound_ms": a_ms, "bound_by": a_by,
+        "library_ms": _device_ms(library, reps=50),
+        "library_note": "scaled_dot_product_attention(attn_mask, "
+                        "enable_gqa=True) at softcap 0, K/V as (B, KVH, S, D)",
+        "library_max_abs_diff_at_softcap_0": lib_diff,
+        "tolerance": tol, "max_abs_err_by_layer": att_err,
+        "nocap_control_excess": nocap_excess,
+        "nocap_ms": _device_ms(lambda: kern(cap=0.0), reps=50),
+        "local_ms": _device_ms(lambda: kern(win=cfg["window"]), reps=50),
+        "local_bound_ms": _attention_bound(q, k, lens, cfg["window"])[0],
+        "shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
+                  "dtype": "bfloat16", "lengths": lens.tolist()},
+        "ctas": B * KVH * splits, "splits": splits,
+    }
+    summary = {"launches": launches, "path_s": path_s,
+               "uq1_tree": tree.name, "segdegree": degrees[i_big:],
+               "attention_max_abs_err": att_err,
+               "attention_nocap_control_excess": nocap_excess}
+    return [seg_row, att_row], summary
+
+
 def phase_small_reference(seed: int = 0) -> float:
     """UQ1 at scale 0.05: the card's samples are uniform over the exact
     union (chi-square p-value returned; must exceed 1e-3)."""
@@ -473,9 +748,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build, probe
+    from repro_torch.kernels import build
 
-    # 1. device and build
+    # full fp32 in the plain versions' products (the comparison targets)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device and build (one library holds every kernel)
     card = _card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -507,21 +786,35 @@ def main(argv=None) -> int:
     main_out = run_path("main", "UQ1", args.scale, args.requests, args.samples,
                         args.round_batch, ("sorted_probe", "probe_pick"),
                         before_serve=kernels_and_parity)
-    prof = phase_profile(main_out.pop("sampler"), args.round_batch,
+    main_sampler = main_out.pop("sampler")
+    prof = phase_profile(main_sampler, args.round_batch,
                          args.round_batch / main_out["engine_samples_per_s"])
     for r in rows:
         r["launches"] = main_out["launches"][r["name"]]
+        r["path"] = "UQ1 main path"
     print("[main] " + json.dumps(main_out), flush=True)
     print("[profile] " + json.dumps(prof), flush=True)
 
-    # 5. residual path
+    # 5. the kernel entry point; segdegree and decode attention are reached
+    # only through it (the UQ1 path launches neither)
+    sweeps = phase_ops_sweeps()
+    print(f"[ops] edge sweeps, kernel vs plain: {json.dumps(sweeps)}",
+          flush=True)
+    ops_rows, ops_out = phase_ops(main_sampler, seed=0)
+    del main_sampler
+    for r in ops_rows:
+        r["main_path_launches"] = main_out["launches"][r["name"]]
+    rows.extend(ops_rows)
+    print("[ops] " + json.dumps(ops_out), flush=True)
+
+    # 6. residual path
     # UQ4 has no weighted node: its tree and residual hops all run probe_pick
     res_out = run_path("residual", "UQ4", args.uq4_scale, 4, args.samples,
                        args.round_batch, ("probe_pick",))
     res_out.pop("sampler")
     print("[residual] " + json.dumps(res_out), flush=True)
 
-    # 6. small-input reference on the card
+    # 7. small-input reference on the card
     p = phase_small_reference()
     print(f"[reference] UQ1 scale 0.05 uniform over the exact union on the "
           f"card: chi-square p={p:.4f}", flush=True)

@@ -1,0 +1,120 @@
+"""One-token GQA decode attention: CUDA kernel + plain version.
+
+:func:`decode_attention` takes ``q (B, H, D)``, ``k``/``v (B, S, KVH, D)`` and
+``lengths (B,)`` and returns ``(B, H, D)`` in q's dtype: query head ``h``
+attends to KV head ``h // (H // KVH)`` over positions ``s < lengths[b]``
+(and ``s >= lengths[b] - window`` when ``window > 0``), with logits
+``(q . k) * scale`` (``scale`` defaults to ``1/sqrt(D)``), optionally
+``softcap * tanh(logits / softcap)``, and an fp32 softmax whose denominator
+is ``max(l, 1e-30)``, so a row of length 0 gives zeros.  f32 or bf16 inputs.
+Replaces the Pallas kernel ``repro/kernels/attention.py::decode_attn_kernel``.
+
+A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
+tensors it launches the kernels of ``csrc/attention.cu`` on the current
+stream (D in {64, 128, 256}, at most 8 query heads per KV head) or raises.
+Each call adds the kernels it launched (2: the partial pass over the
+splits of the sequence, then their merge) to
+``build.launch_counts["decode_attention"]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .build import launch, load, stream
+
+MASKED = -1e30      # the reference's masked logit
+KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_MAX_GROUP = 8
+
+
+def _check(q, k, v, lengths) -> None:
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("decode_attention: q must be (B, H, D) and k, v "
+                         f"(B, S, KVH, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2] != 0:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)} (H must be a multiple of KVH)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise ValueError("decode_attention: q, k, v must share dtype float32 "
+                         f"or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if lengths.shape != (B,):
+        raise ValueError(f"decode_attention: lengths must be ({B},), got "
+                         f"{tuple(lengths.shape)}")
+    if not (q.device == k.device == v.device == lengths.device):
+        raise ValueError("decode_attention: q, k, v and lengths must share a "
+                         "device")
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, scale: Optional[float] = None,
+                           softcap: float = 0.0, window: int = 0
+                           ) -> torch.Tensor:
+    B, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, KVH, H // KVH, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    spos = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.to(torch.int64)[:, None]
+    mask = spos < lens
+    if window > 0:
+        mask &= spos >= lens - window
+    mask = mask[:, None, None, :]
+    logits = torch.where(mask, logits, MASKED)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, scale: Optional[float] = None,
+                     softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """q (B,H,D), k/v (B,S,KVH,D), lengths (B,) -> (B,H,D) in q's dtype."""
+    _check(q, k, v, lengths)
+    dev = q.device
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths, scale=scale,
+                                      softcap=softcap, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {dev}")
+    B, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    if D not in KERNEL_HEAD_DIMS or H // KVH > KERNEL_MAX_GROUP:
+        raise ValueError(f"decode_attention: the kernel takes D in "
+                         f"{KERNEL_HEAD_DIMS} and at most {KERNEL_MAX_GROUP} "
+                         f"query heads per KV head, got D={D}, G={H // KVH}")
+    if window < 0:
+        raise ValueError(f"decode_attention: window {window} < 0")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()) or any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention: q, k, v must be contiguous and "
+                         "16-byte aligned")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    lens = lengths.to(torch.int32).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_scratch = load().repro_decode_attention_scratch_floats(B, H, S, KVH, D,
+                                                             sms)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    launch("decode_attention",
+           "repro_decode_attention_" + ("f32" if q.dtype == torch.float32
+                                        else "bf16"),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+           B, H, S, KVH, D, float(scale), float(softcap), int(window), sms,
+           scratch.data_ptr(), n_scratch, out.data_ptr(), stream(dev))
+    return out

@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernels (nvcc + ctypes).
+"""Build and load the port's CUDA kernels (nvcc + ctypes), and count launches.
 
-``load()`` compiles ``csrc/probe.cu`` on first use into a shared library with
-a plain C interface, caches it by the hash of the source and the flags under
-``build/repro_torch_kernels/`` at the repository root (listed in
+``load()`` compiles every ``csrc/*.cu`` on first use into one shared library
+with a plain C interface, caches it by the hash of the sources and the flags
+under ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``), and loads it with :mod:`ctypes`.  Only the repository's own
 sources are compiled; no PyTorch header is included, so a build takes
 seconds.  Nothing here runs when the module is imported.
+
+:func:`launch` is the one place a wrapper launches a kernel: it calls the C
+launcher, raises if it reports a CUDA error, and adds the number of kernels
+the launcher reports it launched to :data:`launch_counts`.
 """
 
 from __future__ import annotations
@@ -21,21 +25,44 @@ import tempfile
 import time
 from typing import Dict
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("probe.cu",)
+SOURCES = tuple(sorted(p.name for p in CSRC.glob("*.cu")))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# -fmad=false: probe_pick's float32 pick must round exactly as the reference's
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 # argtypes of every exported C function: pointers and the stream are
-# c_void_p, sizes c_longlong; each returns cudaGetLastError() as an int
-_P, _N = ctypes.c_void_p, ctypes.c_longlong
+# c_void_p, sizes c_longlong; the launchers return the number of kernels
+# they launched, or minus the CUDA error, as an int; the scratch-size
+# queries return a c_longlong
+_P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_ATTN = (_P, _P, _P, _P, _N, _N, _N, _N, _N, _F, _F, _N, _I, _P, _N, _P, _P)
 _SIGNATURES = {
-    "repro_sorted_probe_i32": (_P, _N, _P, _N, _P, _P, _P),
-    "repro_sorted_probe_i64": (_P, _N, _P, _N, _P, _P, _P),
-    "repro_probe_pick_i32": (_P, _N, _P, _P, _N, _P, _P, _P),
-    "repro_probe_pick_i64": (_P, _N, _P, _P, _N, _P, _P, _P),
+    "repro_sorted_probe_i32": (_I, (_P, _N, _P, _N, _P, _P, _P)),
+    "repro_sorted_probe_i64": (_I, (_P, _N, _P, _N, _P, _P, _P)),
+    "repro_probe_pick_i32": (_I, (_P, _N, _P, _P, _N, _P, _P, _P)),
+    "repro_probe_pick_i64": (_I, (_P, _N, _P, _P, _N, _P, _P, _P)),
+    "repro_segdegree_scratch_bytes": (_N, (_N,)),
+    "repro_segdegree_i32": (_I, (_P, _N, _P, _N, _P, _P)),
+    "repro_segdegree_i64": (_I, (_P, _N, _P, _N, _P, _P)),
+    "repro_decode_attention_scratch_floats": (_N, (_N, _N, _N, _N, _N, _I)),
+    "repro_decode_attention_splits": (_I, (_N, _N, _N, _I)),
+    "repro_decode_attention_f32": (_I, _ATTN),
+    "repro_decode_attention_bf16": (_I, _ATTN),
 }
+
+# kernels launched per wrapper since the last reset (the only global state
+# of the port); a run shows through these that its path went through them
+launch_counts: Dict[str, int] = {"sorted_probe": 0, "probe_pick": 0,
+                                 "segdegree": 0, "decode_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -58,34 +85,47 @@ def _digest() -> str:
 
 
 def library_path() -> pathlib.Path:
-    return BUILD_DIR / f"libprobe_{_digest()}.so"
+    return BUILD_DIR / f"librepro_kernels_{_digest()}.so"
 
 
 def build() -> Dict[str, object]:
-    """Compile the library if its cached copy is missing.
+    """Compile the library if its cached copy is missing: one nvcc per
+    source, all started together, then one link.
 
     Returns ``{"path", "seconds", "cached", "log"}``; ``log`` is nvcc's
     ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
-    Raises with nvcc's output when the compile fails."""
+    Raises with nvcc's output when a compile or the link fails."""
     out = library_path()
     log_path = out.with_suffix(".log")
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(out), "seconds": 0.0, "cached": True, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    os.replace(tmp, out)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        t0 = time.perf_counter()
+        objs = [str(tmp / f"{s}.o") for s in SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        link = [_nvcc(), "-shared", "-o", str(tmp / "lib.so"), *objs]
+        for cmd, p, text in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        seconds = time.perf_counter() - t0
+        log = "".join(logs) + proc.stdout + proc.stderr
+        log_path.write_text(log)
+        os.replace(tmp / "lib.so", out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"path": str(out), "seconds": seconds, "cached": False, "log": log}
 
 
@@ -94,8 +134,22 @@ def load() -> ctypes.CDLL:
     """The built library with every function's argtypes/restype declared
     (built on first call; one handle per process)."""
     lib = ctypes.CDLL(build()["path"])
-    for name, argtypes in _SIGNATURES.items():
+    for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
+
+
+def stream(dev) -> int:
+    """The current CUDA stream of ``dev`` as an integer handle."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch(kernel: str, symbol: str, *args) -> None:
+    """Call the C launcher ``symbol``; raise on a CUDA error, else add the
+    kernels it launched to ``launch_counts[kernel]``."""
+    rc = getattr(load(), symbol)(*args)
+    if rc < 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {-rc}")
+    launch_counts[kernel] += rc

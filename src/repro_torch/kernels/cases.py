@@ -1,0 +1,188 @@
+"""Edge cases of the port's kernels, one list for every check that uses them.
+
+The CPU tests feed these seeded numpy inputs to the reference package and to
+the port's plain versions; the card's tests and ``chip_smoke.py`` feed the
+same inputs to the CUDA kernels and the plain versions.  The attention
+tolerances live here too, so every comparison holds the same limit.
+Nothing here touches a device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+I64_MAX = np.iinfo(np.int64).max
+I64_MIN = np.iinfo(np.int64).min
+
+
+def key_dtypes(*arrays: np.ndarray) -> List[torch.dtype]:
+    """int64, and int32 wherever every value fits."""
+    vals = np.concatenate([np.asarray(a, np.int64).ravel() for a in arrays])
+    out = [torch.int64]
+    if vals.size == 0 or (np.abs(vals.astype(np.float64)) < 2**31).all():
+        out.append(torch.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sorted probe and probe-and-pick: (keys, queries), keys sorted int64
+# ---------------------------------------------------------------------------
+
+PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45",
+               "single_key", "empty_keys"]
+# the cases the reference's Pallas kernels take (at least two key blocks)
+PALLAS_PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45"]
+
+
+def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(PROBE_CASES.index(name))
+    if name == "runs_straddle_blocks":
+        keys = np.repeat(np.arange(5, dtype=np.int64), 200)     # 1000 keys
+        qs = np.arange(-1, 7, dtype=np.int64)
+    elif name == "below_and_above":
+        keys = np.sort(rng.integers(100, 200, 300))
+        qs = np.array([-5, 0, 99, 100, 150, 199, 200, 10**6], np.int64)
+    elif name == "dom_2_45":
+        keys = np.sort(rng.integers(-2**45, 2**45, 700))
+        qs = np.concatenate([rng.integers(-2**46, 2**46, 200), keys[::7]])
+    elif name == "single_key":
+        keys = np.array([7], np.int64)
+        qs = np.array([6, 7, 8], np.int64)
+    else:
+        keys = np.zeros(0, np.int64)
+        qs = np.array([-1, 0, 5], np.int64)
+    return keys.astype(np.int64), qs.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# segdegree: a sorted int64 key column
+# ---------------------------------------------------------------------------
+
+SEGDEGREE_CASES = [f"sweep_{i}" for i in range(12)] + [
+    "run_spanning_many_blocks", "empty", "single", "negative", "int64_max",
+    "int64_min", "all_distinct", "tile_aligned_runs", "runs_straddle_tiles"]
+# millions of keys: more than one merge level of the card's kernel
+SEGDEGREE_CARD_CASES = ["multi_level_merge", "run_across_every_tile"]
+
+
+def segdegree_keys(name: str) -> np.ndarray:
+    """The sweeps are drawn like the reference's ``test_segdegree_sweep``
+    (n in [1, 4000], keys in [0, dom))."""
+    if name.startswith("sweep_"):
+        rng = np.random.default_rng(int(name[6:]))
+        n, dom = int(rng.integers(1, 4001)), int(rng.integers(1, 201))
+        return np.sort(rng.integers(0, dom, n)).astype(np.int64)
+    rng = np.random.default_rng((SEGDEGREE_CASES + SEGDEGREE_CARD_CASES)
+                                .index(name))
+    keys = {
+        "run_spanning_many_blocks": lambda: np.full(1000, 42),
+        "empty": lambda: np.zeros(0),
+        "single": lambda: np.array([7]),
+        "negative": lambda: np.sort(rng.integers(-500, 500, 3001)),
+        # a real key equal to the reference's padding value
+        "int64_max": lambda: np.concatenate(
+            [np.sort(rng.integers(0, 2**62, 300)), np.full(5, I64_MAX)]),
+        "int64_min": lambda: np.concatenate(
+            [np.full(3, I64_MIN), np.sort(rng.integers(-2**40, 2**40, 400))]),
+        "all_distinct": lambda: np.arange(-2500, 2500),
+        "tile_aligned_runs": lambda: np.repeat(np.arange(4), 2048),
+        "runs_straddle_tiles": lambda: np.repeat(np.arange(7), 1999),
+        "multi_level_merge": lambda: np.repeat(
+            np.arange(1_250_000), rng.integers(1, 8, 1_250_000)),
+        # one run through every tile and both merge levels, then short runs
+        "run_across_every_tile": lambda: np.repeat(
+            np.arange(3), [2048 * 2048 + 1, 5, 2048 * 3]),
+    }[name]()
+    return np.asarray(keys, np.int64)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+# f32: the kernel and the plain version differ only in summation order
+F32_TOL = 2e-5
+# bf16 output, compared in fp32: rounding to bf16 moves a value by at most
+# half an ulp (2^-8 of it), and two roundings differ by at most one ulp
+# (2^-7 < 1e-2); atol covers outputs near 0
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+
+
+def attention_tol(dtype: torch.dtype) -> Dict[str, float]:
+    """``rtol``/``atol`` for an output of ``dtype`` against fp32."""
+    if dtype == torch.bfloat16:
+        return {"rtol": BF16_RTOL, "atol": BF16_ATOL}
+    return {"rtol": F32_TOL, "atol": F32_TOL}
+
+
+# (B, H, KVH, D, S, softcap, window): the shapes of the reference's
+# tests/test_kernels.py
+ATTENTION_SHAPES = [
+    (2, 8, 4, 128, 384, 0.0, 0),
+    (1, 16, 8, 128, 256, 50.0, 0),
+    (2, 4, 1, 128, 512, 0.0, 128),
+    (1, 8, 8, 64, 256, 30.0, 64),
+    (3, 4, 2, 64, 130, 0.0, 0),     # S not a multiple of 128
+]
+ATTENTION_CASES = [f"shape_{i}" for i in range(len(ATTENTION_SHAPES))] + [
+    "bf16", "length_0", "shorter_than_window", "head_mapping",
+    "softcap_range", "softcap_range_bf16"]
+
+
+def attention_inputs(B: int, H: int, KVH: int, D: int, S: int, seed: int):
+    """float32 q, k, v and lengths in [S // 2, S], drawn as the reference's
+    tests draw them."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    lens = rng.integers(max(S // 2, 1), S + 1, B)
+    return q, k, v, lens
+
+
+def attention_case(name: str) -> dict:
+    """``{"q", "k", "v", "lens", "softcap", "window", "dtype"}`` with float32
+    numpy inputs (cast to ``dtype`` before the call); ``head_mapping`` adds
+    ``heads``, the value each query head must return."""
+    c = {"softcap": 0.0, "window": 0, "dtype": torch.float32}
+    if name.startswith("shape_"):
+        B, H, KVH, D, S, c["softcap"], c["window"] = ATTENTION_SHAPES[
+            int(name[6:])]
+        q, k, v, lens = attention_inputs(B, H, KVH, D, S, B * 1000 + S)
+    elif name == "bf16":
+        q, k, v, lens = attention_inputs(2, 8, 4, 128, 256, 5)
+        lens[:] = 256
+        c["dtype"] = torch.bfloat16
+    elif name == "length_0":
+        q, k, v, lens = attention_inputs(2, 8, 2, 128, 200, 11)
+        lens[0] = 0
+    elif name == "shorter_than_window":
+        q, k, v, lens = attention_inputs(2, 4, 2, 256, 300, 12)
+        lens[:] = [5, 40]
+        c["window"] = 64
+    elif name == "head_mapping":
+        # KV head j's values are all j + 1, so query head h must return
+        # h // G + 1 (not h % KVH + 1)
+        B, H, KVH, D, S = 1, 8, 4, 64, 40
+        rng = np.random.default_rng(7)
+        q = rng.standard_normal((B, H, D)).astype(np.float32)
+        k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+        v = np.broadcast_to(np.arange(1, KVH + 1, dtype=np.float32)
+                            [None, None, :, None], (B, S, KVH, D)).copy()
+        lens = np.array([S])
+        c["heads"] = np.repeat(np.arange(1, KVH + 1), H // KVH)
+    elif name.startswith("softcap_range"):
+        # logits of std softcap / 2, where tanh bends them: a kernel that
+        # dropped the softcap fails the tolerance here
+        q, k, v, lens = attention_inputs(2, 8, 4, 128, 384, 13)
+        c["softcap"] = 50.0
+        q *= c["softcap"] / 2
+        if name.endswith("_bf16"):
+            c["dtype"] = torch.bfloat16
+    else:
+        raise KeyError(name)
+    c.update(q=q, k=k, v=v, lens=lens)
+    return c

@@ -92,37 +92,42 @@ inline int blocks_for(long long nq) {
   return static_cast<int>((nq + kThreads - 1) / kThreads);
 }
 
+// The launchers' return value: the kernels launched, or minus the CUDA error.
+inline int launched_or_error(int launched) {
+  const cudaError_t err = cudaGetLastError();
+  return err == cudaSuccess ? launched : -static_cast<int>(err);
+}
+
 template <typename K>
 int launch_sorted_probe(const void* keys, long long n, const void* queries,
                         long long nq, void* lo, void* hi, void* stream) {
-  if (nq > 0) {
-    sorted_probe_kernel<K><<<blocks_for(nq), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const K*>(keys), static_cast<int>(n),
-        static_cast<const K*>(queries), static_cast<int>(nq),
-        static_cast<int*>(lo), static_cast<int*>(hi));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nq <= 0) return launched_or_error(0);
+  sorted_probe_kernel<K><<<blocks_for(nq), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const K*>(keys), static_cast<int>(n),
+      static_cast<const K*>(queries), static_cast<int>(nq),
+      static_cast<int*>(lo), static_cast<int*>(hi));
+  return launched_or_error(1);
 }
 
 template <typename K>
 int launch_probe_pick(const void* keys, long long n, const void* queries,
                       const void* u, long long nq, void* pos, void* deg,
                       void* stream) {
-  if (nq > 0) {
-    probe_pick_kernel<K><<<blocks_for(nq), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const K*>(keys), static_cast<int>(n),
-        static_cast<const K*>(queries), static_cast<const float*>(u),
-        static_cast<int>(nq), static_cast<int*>(pos), static_cast<int*>(deg));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nq <= 0) return launched_or_error(0);
+  probe_pick_kernel<K><<<blocks_for(nq), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const K*>(keys), static_cast<int>(n),
+      static_cast<const K*>(queries), static_cast<const float*>(u),
+      static_cast<int>(nq), static_cast<int*>(pos), static_cast<int*>(deg));
+  return launched_or_error(1);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each function launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// given stream, does not synchronise, and returns the number of kernels it
+// launched (1; 0 when there is no query), or minus the CUDA error.
 extern "C" {
 
 int repro_sorted_probe_i32(const void* keys, long long n, const void* queries,

@@ -12,23 +12,17 @@ Outputs are int32 in ``[0, n]`` (``pos`` is not clipped: a dead query,
 ``d == 0``, gets ``pos = lo``).  A wrapper given CPU tensors runs the plain
 PyTorch version (``torch.searchsorted`` + the same float32 pick); given CUDA
 tensors it launches the kernel of ``csrc/probe.cu`` on the current stream or
-raises.  Each kernel launch adds one to :data:`launch_counts`.
+raises.  Each kernel launch adds one to :data:`launch_counts`, the counter
+that every kernel of the port shares (``build.launch_counts``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-# kernel launches per wrapper since the last reset (the only global state of
-# the port); a run shows through these that its path went through the kernels
-launch_counts: Dict[str, int] = {"sorted_probe": 0, "probe_pick": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+from .build import launch, launch_counts, reset_launch_counts, stream  # noqa: F401
 
 
 def _check(keys: torch.Tensor, queries: torch.Tensor) -> None:
@@ -47,13 +41,8 @@ def _check(keys: torch.Tensor, queries: torch.Tensor) -> None:
         raise ValueError("sorted probe: more than 2^31 - 1 keys")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_if(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+def _suffix(keys: torch.Tensor) -> str:
+    return "i32" if keys.dtype == torch.int32 else "i64"
 
 
 # ---------------------------------------------------------------------------
@@ -96,18 +85,14 @@ def sorted_probe(keys: torch.Tensor, queries: torch.Tensor
         return sorted_probe_plain(keys, queries)
     if dev.type != "cuda":
         raise ValueError(f"sorted_probe: unsupported device {dev}")
-    from .build import load
     nq = queries.shape[0]
     lo = torch.empty(nq, dtype=torch.int32, device=dev)
     hi = torch.empty(nq, dtype=torch.int32, device=dev)
     if nq == 0:
         return lo, hi
-    lib = load()
-    fn = (lib.repro_sorted_probe_i32 if keys.dtype == torch.int32
-          else lib.repro_sorted_probe_i64)
-    _raise_if(fn(keys.data_ptr(), keys.shape[0], queries.data_ptr(), nq,
-                 lo.data_ptr(), hi.data_ptr(), _stream(dev)), "sorted_probe")
-    launch_counts["sorted_probe"] += 1
+    launch("sorted_probe", "repro_sorted_probe_" + _suffix(keys),
+           keys.data_ptr(), keys.shape[0], queries.data_ptr(), nq,
+           lo.data_ptr(), hi.data_ptr(), stream(dev))
     return lo, hi
 
 
@@ -124,17 +109,12 @@ def probe_pick(keys: torch.Tensor, queries: torch.Tensor, u: torch.Tensor
         return probe_pick_plain(keys, queries, u)
     if dev.type != "cuda":
         raise ValueError(f"probe_pick: unsupported device {dev}")
-    from .build import load
     nq = queries.shape[0]
     pos = torch.empty(nq, dtype=torch.int32, device=dev)
     deg = torch.empty(nq, dtype=torch.int32, device=dev)
     if nq == 0:
         return pos, deg
-    lib = load()
-    fn = (lib.repro_probe_pick_i32 if keys.dtype == torch.int32
-          else lib.repro_probe_pick_i64)
-    _raise_if(fn(keys.data_ptr(), keys.shape[0], queries.data_ptr(),
-                 u.data_ptr(), nq, pos.data_ptr(), deg.data_ptr(),
-                 _stream(dev)), "probe_pick")
-    launch_counts["probe_pick"] += 1
+    launch("probe_pick", "repro_probe_pick_" + _suffix(keys),
+           keys.data_ptr(), keys.shape[0], queries.data_ptr(), u.data_ptr(),
+           nq, pos.data_ptr(), deg.data_ptr(), stream(dev))
     return pos, deg

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,16 +35,19 @@ def test_port_imports_neither_jax_nor_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device"])
+@pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device",
+                                   "ops"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.core.backends.torch_backend import TorchBackend
     from repro_torch.core.framework import estimate_union, warmup
     from repro_torch.core.union_sampler import SetUnionSampler
     from repro_torch.data.workloads import uq1
     from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wl = uq1(scale=0.05, overlap=0.4, seed=0)
+    keys = np.arange(10)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "set_union_sampler":
             est = estimate_union(warmup(wl.cat, wl.joins,
@@ -51,6 +55,22 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             SetUnionSampler(wl.cat, wl.joins, est.cover, backend="torch")
         elif entry == "backend":
             TorchBackend(wl.cat, wl.joins)
+        elif entry == "ops":
+            ops.segdegree(keys)
         else:
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    if entry == "ops":
+        for fn in (lambda d: ops.searchsorted(keys, keys, device=d),
+                   lambda d: ops.walk_hop(keys, keys, np.zeros(10), device=d),
+                   lambda d: ops.ranged_weighted_pick(
+                       np.arange(11.0), keys[:3], keys[:3] + 1, np.zeros(3),
+                       device=d),
+                   lambda d: ops.decode_attention(
+                       np.zeros((1, 2, 64), np.float32),
+                       np.zeros((1, 4, 1, 64), np.float32),
+                       np.zeros((1, 4, 1, 64), np.float32), [4], device=d)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(None)
+            fn("cpu")
+        assert ops.segdegree(keys, device="cpu") == (10, 1)

@@ -18,17 +18,18 @@ from repro.kernels.walk import walk_hop_pallas
 
 from repro_torch.kernels import probe
 
-from test_torch_kernels_cuda import CASES, PALLAS_CASES, _case, _dtypes
+from repro_torch.kernels.cases import (PALLAS_PROBE_CASES, PROBE_CASES,
+                                       key_dtypes, probe_case)
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", PROBE_CASES)
 def test_sorted_probe_plain_equals_reference(name):
-    keys, qs = _case(name)
+    keys, qs = probe_case(name)
     lo_r, hi_r = ref.searchsorted_ref(keys, qs)
-    if name in PALLAS_CASES:
+    if name in PALLAS_PROBE_CASES:
         lo_p, hi_p = searchsorted_pallas(keys, qs, interpret=True)
         assert np.array_equal(lo_p, lo_r) and np.array_equal(hi_p, hi_r)
-    for dt in _dtypes(keys, qs):
+    for dt in key_dtypes(keys, qs):
         lo, hi = probe.sorted_probe(torch.as_tensor(keys).to(dt),
                                     torch.as_tensor(qs).to(dt))
         assert lo.dtype == hi.dtype == torch.int32
@@ -36,21 +37,21 @@ def test_sorted_probe_plain_equals_reference(name):
         assert np.array_equal(hi.numpy(), hi_r), dt
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", PROBE_CASES)
 def test_probe_pick_plain_equals_reference(name):
-    keys, qs = _case(name)
+    keys, qs = probe_case(name)
     rng = np.random.default_rng(len(name))
     u = rng.random(qs.shape[0]).astype(np.float32)
     u[:2] = np.float32(np.nextafter(np.float32(1), np.float32(0)))  # u → 1⁻
     pos_r, d_r = ref.walk_hop_ref(keys, qs, u)
-    for dt in _dtypes(keys, qs):
+    for dt in key_dtypes(keys, qs):
         pos, d = probe.probe_pick(torch.as_tensor(keys).to(dt),
                                   torch.as_tensor(qs).to(dt),
                                   torch.as_tensor(u))
         assert np.array_equal(d.numpy(), d_r)
         # unclipped contract: a dead query (d == 0) gets pos = lo
         assert np.array_equal(pos.numpy(), pos_r)
-    if name in PALLAS_CASES:
+    if name in PALLAS_PROBE_CASES:
         pos_p, d_p = walk_hop_pallas(keys, qs, u, interpret=True)
         assert np.array_equal(d_p, d_r)
         # walk_hop_pallas clips to n - 1 for its host caller
@@ -77,7 +78,8 @@ def test_cpu_tensors_launch_nothing():
     q = torch.tensor([1, 3, 99], dtype=torch.int32)
     probe.sorted_probe(keys, q)
     probe.probe_pick(keys, q, torch.rand(3))
-    assert probe.launch_counts == {"sorted_probe": 0, "probe_pick": 0}
+    assert probe.launch_counts == {"sorted_probe": 0, "probe_pick": 0,
+                                   "segdegree": 0, "decode_attention": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "u_dtype"])

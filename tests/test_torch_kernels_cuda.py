@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Shares the sweep cases with ``test_torch_kernels.py``.  Imports neither
-``jax`` nor ``repro``, so it runs on a machine that has only the port::
+The cases come from ``repro_torch.kernels.cases``, which the CPU tests
+(``test_torch_kernels.py``, ``test_torch_ops.py``) and ``chip_smoke.py``
+share.  Imports neither ``jax`` nor ``repro``, so it runs on a machine that
+has only the port::
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_kernels_cuda.py
@@ -9,57 +11,28 @@ Shares the sweep cases with ``test_torch_kernels.py``.  Imports neither
 Without a card every test here skips.
 """
 
-import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import probe
+from repro_torch.kernels import attention, probe, segdegree
+from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CASES,
+                                       SEGDEGREE_CARD_CASES, SEGDEGREE_CASES,
+                                       attention_case, attention_tol,
+                                       key_dtypes, probe_case, segdegree_keys)
 
 
-def _case(name):
-    """(keys, queries) of one sweep case; keys sorted int64."""
-    rng = np.random.default_rng(CASES.index(name))
-    if name == "runs_straddle_blocks":
-        keys = np.repeat(np.arange(5, dtype=np.int64), 200)     # 1000 keys
-        qs = np.arange(-1, 7, dtype=np.int64)
-    elif name == "below_and_above":
-        keys = np.sort(rng.integers(100, 200, 300))
-        qs = np.array([-5, 0, 99, 100, 150, 199, 200, 10**6], np.int64)
-    elif name == "dom_2_45":
-        keys = np.sort(rng.integers(-2**45, 2**45, 700))
-        qs = np.concatenate([rng.integers(-2**46, 2**46, 200), keys[::7]])
-    elif name == "single_key":
-        keys = np.array([7], np.int64)
-        qs = np.array([6, 7, 8], np.int64)
-    elif name == "empty_keys":
-        keys = np.zeros(0, np.int64)
-        qs = np.array([-1, 0, 5], np.int64)
-    else:
-        raise KeyError(name)
-    return keys.astype(np.int64), qs.astype(np.int64)
-
-
-CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45", "single_key",
-         "empty_keys"]
-PALLAS_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45"]
-
-
-def _dtypes(keys, qs):
-    """int32 as well as int64 wherever the values fit."""
-    out = [torch.int64]
-    if keys.size == 0 or (np.abs(np.concatenate([keys, qs])) < 2**31).all():
-        out.append(torch.int32)
-    return out
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", PROBE_CASES)
 def test_kernels_on_card_equal_plain(name):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
-    keys, qs = _case(name)
+    _need_card()
+    keys, qs = probe_case(name)
     u = torch.rand(qs.shape[0], device="cuda")
-    for dt in _dtypes(keys, qs):
+    for dt in key_dtypes(keys, qs):
         k = torch.as_tensor(keys, device="cuda").to(dt)
         q = torch.as_tensor(qs, device="cuda").to(dt)
         before = dict(probe.launch_counts)
@@ -72,3 +45,55 @@ def test_kernels_on_card_equal_plain(name):
         assert torch.equal(pos, pos_p) and torch.equal(d, d_p)
         assert probe.launch_counts["sorted_probe"] == before["sorted_probe"] + 1
         assert probe.launch_counts["probe_pick"] == before["probe_pick"] + 1
+
+
+def _segdegree_kernels(n):
+    """Kernels one call launches: the tile pass, then one merge level per
+    2,048-fold reduction of the tile summaries (none for n = 0)."""
+    if n == 0:
+        return 0
+    launched, m = 1, -(-n // 2048)
+    while m > 1:
+        launched, m = launched + 1, -(-m // 2048)
+    return launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEGDEGREE_CASES + SEGDEGREE_CARD_CASES)
+def test_segdegree_on_card_equals_plain(name):
+    _need_card()
+    keys = segdegree_keys(name)
+    for dt in key_dtypes(keys):
+        k = torch.as_tensor(keys, device="cuda").to(dt)
+        before = probe.launch_counts["segdegree"]
+        got = segdegree.segdegree(k)
+        assert got == segdegree.segdegree_plain(k), (name, dt)
+        assert (probe.launch_counts["segdegree"]
+                == before + _segdegree_kernels(keys.size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_decode_attention_on_card_equals_plain(case):
+    _need_card()
+    c = attention_case(case)
+    dt, cap, win = c["dtype"], c["softcap"], c["window"]
+    t = [torch.as_tensor(c[x], device="cuda").to(dt) for x in "qkv"]
+    lt = torch.as_tensor(c["lens"], device="cuda")
+    before = probe.launch_counts["decode_attention"]
+    out = attention.decode_attention(*t, lt, softcap=cap, window=win)
+    # the plain version in fp32 from the same (possibly bf16) inputs
+    want = attention.decode_attention_plain(*(x.float() for x in t), lt,
+                                            softcap=cap, window=win)
+    torch.cuda.synchronize()
+    # the partial pass and the merge of the splits
+    assert probe.launch_counts["decode_attention"] == before + 2
+    assert out.dtype == dt and out.shape == want.shape
+    tol = attention_tol(dt)
+    torch.testing.assert_close(out.float(), want, **tol)
+    if case == "length_0":
+        assert not out[0].any()
+    elif case.startswith("softcap_range"):
+        # control: the same kernel without the softcap must fail the limit
+        nocap = attention.decode_attention(*t, lt, softcap=0.0, window=win)
+        assert not torch.allclose(nocap.float(), want, **tol)
