@@ -37,7 +37,9 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    same calls on CPU tensors.  Edge sweeps of both new kernels, and times
    against the bound, the plain version and the library call
    (``torch.unique_consecutive``; ``scaled_dot_product_attention`` at
-   softcap 0);
+   softcap 0); for decode attention also the bound shares, the ratio to
+   the library, its CTAs (one wave) and the ptxas report of the bf16,
+   D 256, G 2 instantiation that these widths launch;
 6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``);
 7. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
    exact union (chi-square), on the card.
@@ -488,6 +490,25 @@ def _attention_bound(q, k, lengths, window: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_stats(log: str, kernel: str, instance: str) -> dict:
+    """Registers and spills that nvcc's ``-Xptxas -v`` report gives the
+    kernel whose mangled name holds ``kernel`` and ``instance``."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and kernel in ln and instance in ln:
+            out = {"instance": instance}
+            for nxt in lines[i + 1:i + 4]:
+                words = nxt.replace(",", "").split()
+                for j, w in enumerate(words[1:], 1):
+                    if w == "registers":
+                        out["registers"] = int(words[j - 1])
+                    elif w == "spill" and words[j + 1] in ("stores", "loads"):
+                        out["spill_" + words[j + 1] + "_bytes"] = int(
+                            words[j - 2])
+            return out
+    raise AssertionError(f"no ptxas report for {kernel} {instance}")
+
+
 def phase_ops_sweeps() -> dict:
     """The two new kernels against their plain versions on the shared edge
     cases (``repro_torch.kernels.cases``): segdegree exact (int64, and int32
@@ -672,8 +693,8 @@ def phase_ops(sampler, seed: int):
     lib_diff = float((library().squeeze(2).float()
                       - kern(cap=0.0).float()).abs().max())
     a_ms, a_by = _attention_bound(q, k, lens, 0)
-    splits = build.load().repro_decode_attention_splits(
-        B, S, KVH, torch.cuda.get_device_properties(0).multi_processor_count)
+    ctas = attention.kernel_ctas(H, KVH, D, True, q.device)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     att_row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attention.cu",
@@ -695,8 +716,17 @@ def phase_ops(sampler, seed: int):
         "local_bound_ms": _attention_bound(q, k, lens, cfg["window"])[0],
         "shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
                   "dtype": "bfloat16", "lengths": lens.tolist()},
-        "ctas": B * KVH * splits, "splits": splits,
+        # one wave: CTAs the SMs hold at once, each an equal run of tiles
+        "ctas": ctas, "ctas_per_sm": ctas / sms,
+        "smem_bytes": build.load().repro_decode_attention_smem_bytes(
+            H, KVH, D, 1),
+        "ptxas": _ptxas_stats(build.build()["log"], "decode_attn_kernel",
+                              "13__nv_bfloat16Li256ELi2E"),
     }
+    att_row["bound_share"] = att_row["bound_ms"] / att_row["ms"]
+    att_row["local_bound_share"] = (att_row["local_bound_ms"]
+                                    / att_row["local_ms"])
+    att_row["vs_library"] = att_row["nocap_ms"] / att_row["library_ms"]
     summary = {"launches": launches, "path_s": path_s,
                "uq1_tree": tree.name, "segdegree": degrees[i_big:],
                "attention_max_abs_err": att_err,

@@ -12,13 +12,15 @@ Replaces the Pallas kernel ``repro/kernels/attention.py::decode_attn_kernel``.
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernels of ``csrc/attention.cu`` on the current
 stream (D in {64, 128, 256}, at most 8 query heads per KV head) or raises.
-Each call adds the kernels it launched (2: the partial pass over the
-splits of the sequence, then their merge) to
-``build.launch_counts["decode_attention"]``.
+Each call adds the kernels it launched (2: the plan, which cuts the kept
+rows of every (b, kv head) pair into one balanced run of tiles per CTA on
+the device, then the attention kernel, which also merges the pairs that
+span CTAs) to ``build.launch_counts["decode_attention"]``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -107,14 +109,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     lens = lengths.to(torch.int32).contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_scratch = load().repro_decode_attention_scratch_floats(B, H, S, KVH, D,
-                                                             sms)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    ctas = kernel_ctas(H, KVH, D, bf16, dev)
+    n_scratch = load().repro_decode_attention_scratch_bytes(B, H, KVH, D, ctas)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     launch("decode_attention",
-           "repro_decode_attention_" + ("f32" if q.dtype == torch.float32
-                                        else "bf16"),
+           "repro_decode_attention_" + ("bf16" if bf16 else "f32"),
            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-           B, H, S, KVH, D, float(scale), float(softcap), int(window), sms,
+           B, H, S, KVH, D, float(scale), float(softcap), int(window), ctas,
            scratch.data_ptr(), n_scratch, out.data_ptr(), stream(dev))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_ctas(H: int, KVH: int, D: int, bf16: bool, dev: torch.device) -> int:
+    """CTAs the attention kernel launches: one wave, as many as the SMs of
+    ``dev`` hold at once for this group size, head width and dtype."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        ctas = load().repro_decode_attention_ctas(H, KVH, D, int(bf16), sms)
+    if ctas <= 0:
+        raise RuntimeError(f"decode_attention: occupancy query failed with "
+                           f"CUDA error {-ctas}")
+    return ctas

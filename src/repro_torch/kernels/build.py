@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # argtypes of every exported C function: pointers and the stream are
 # c_void_p, sizes c_longlong; the launchers return the number of kernels
 # they launched, or minus the CUDA error, as an int; the scratch-size
-# queries return a c_longlong
+# queries return a c_longlong, the CTA and shared-memory queries an int
 _P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ATTN = (_P, _P, _P, _P, _N, _N, _N, _N, _N, _F, _F, _N, _I, _P, _N, _P, _P)
 _SIGNATURES = {
@@ -48,8 +48,9 @@ _SIGNATURES = {
     "repro_segdegree_scratch_bytes": (_N, (_N,)),
     "repro_segdegree_i32": (_I, (_P, _N, _P, _N, _P, _P)),
     "repro_segdegree_i64": (_I, (_P, _N, _P, _N, _P, _P)),
-    "repro_decode_attention_scratch_floats": (_N, (_N, _N, _N, _N, _N, _I)),
-    "repro_decode_attention_splits": (_I, (_N, _N, _N, _I)),
+    "repro_decode_attention_ctas": (_I, (_N, _N, _N, _I, _I)),
+    "repro_decode_attention_smem_bytes": (_I, (_N, _N, _N, _I)),
+    "repro_decode_attention_scratch_bytes": (_N, (_N, _N, _N, _N, _I)),
     "repro_decode_attention_f32": (_I, _ATTN),
     "repro_decode_attention_bf16": (_I, _ATTN),
 }

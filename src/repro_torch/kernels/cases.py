@@ -129,7 +129,8 @@ ATTENTION_SHAPES = [
 ]
 ATTENTION_CASES = [f"shape_{i}" for i in range(len(ATTENTION_SHAPES))] + [
     "bf16", "length_0", "shorter_than_window", "head_mapping",
-    "softcap_range", "softcap_range_bf16"]
+    "softcap_range", "softcap_range_bf16", "skewed_lengths", "many_pairs",
+    "all_zero_lengths"]
 
 
 def attention_inputs(B: int, H: int, KVH: int, D: int, S: int, seed: int):
@@ -182,6 +183,18 @@ def attention_case(name: str) -> dict:
         q *= c["softcap"] / 2
         if name.endswith("_bf16"):
             c["dtype"] = torch.bfloat16
+    elif name == "skewed_lengths":
+        # one row at S, the others at 0-3 rows: the card's plan gives the long
+        # pair many CTAs and packs the short ones into one
+        q, k, v, lens = attention_inputs(6, 8, 4, 128, 1000, 14)
+        lens[:] = [1000, 0, 1, 2, 3, 1]
+    elif name == "many_pairs":
+        # B * KVH = 288 pairs of 20-40 rows, more than an H100's 264 CTAs:
+        # CTAs of the card's kernel span several pairs
+        q, k, v, lens = attention_inputs(36, 16, 8, 64, 40, 15)
+    elif name == "all_zero_lengths":
+        q, k, v, lens = attention_inputs(3, 4, 2, 64, 64, 16)
+        lens[:] = 0
     else:
         raise KeyError(name)
     c.update(q=q, k=k, v=v, lens=lens)

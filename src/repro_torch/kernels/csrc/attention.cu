@@ -14,20 +14,32 @@
 // gemma-2-9b's widths (B 8, S 8192, KVH 8, D 256, bf16) K and V are 537 MB.
 //
 // What the design does about it:
-// * One warp per key row: each lane holds D / 32 contiguous elements, so a
-//   row is one coalesced 16-byte load per lane (bf16, D = 256), and the row
-//   stays in registers for all G query heads of its KV head: K and V are
-//   read from device memory once, never once per query head.
-// * Each warp keeps a few rows in flight per step and its own online-softmax
-//   state (m, l, acc) in registers; no shared memory and no block barrier.
-// * Only rows inside [max(length - window, 0), min(length, S)) are read:
-//   masked rows contribute p = 0 to the reference, so skipping them leaves
-//   the result unchanged, and a local (windowed) layer reads a window's worth.
-// * Flash-decoding: B * KVH CTAs alone (64 at gemma-2's shape) would leave
-//   half of the 132 SMs idle, so each (b, kv_head) splits its kept range over
-//   several CTAs; every warp writes a partial (m, l, acc) and a second kernel
-//   merges the partials of each (b, h) with the usual rescaling.
-// No S padding is needed: the ragged end of the range is masked by index.
+// * One wave of balanced work.  The kept rows [max(len - window, 0),
+//   min(len, S)) of every (b, kv head) pair are cut into tiles of kRows
+//   rows, and the tiles of all pairs, in pair order, form one sequence.  A
+//   plan kernel (one block) takes the prefix sum of the tile counts from
+//   `lengths` on the device, so there is no host sync, and the attention
+//   kernel's CTAs, as many as the SMs hold at once, each take an equal run
+//   of whole tiles.  A CTA finds its first pair by binary search in that
+//   prefix sum and may cross pair boundaries; a pair may span CTAs.
+// * Bytes in flight that do not depend on registers.  K and V tiles go
+//   through a ring of kStages stages in shared memory, filled with
+//   cp.async (16 bytes a thread, L2 only), so the next tile's loads are in
+//   flight while the current one is computed, and the other CTA of the SM
+//   computes while this one waits.  Rows past the end of a pair are
+//   zero-filled by the copy and masked.
+// * Scores without a shuffle tree per row.  q (G x D, in its own dtype,
+//   so bf16 q reads half the bytes) sits in shared memory.  Eight lanes score one row (three shuffles per head), so a
+//   warp scores four rows at once and keeps one online-softmax state for
+//   them per head: one max, one rescale and one exp per row and head, and
+//   P.V in fp32 FMA from the staged V tile.  The softcap's tanhf stays the
+//   accurate one (the f32 limit is 2e-5).
+// * A small merge.  At the end of each (CTA, pair) segment the warps merge
+//   their states through shared memory, so a CTA writes one partial per
+//   (pair, head).  A pair that one CTA covers whole is written straight to
+//   the output; otherwise the last CTA to finish the pair (an atomic
+//   counter per pair) merges its few partials.  Pairs with no kept row are
+//   zeroed by the plan kernel, so a length-0 row gives zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,7 +51,13 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;   // the reference's masked logit
+constexpr int kRows = 32;                      // rows of K (and V) per tile
+constexpr int kRowsPerWarp = kRows / kWarps;   // 4: eight lanes per row
+// ring of K/V tiles: with two CTAs an SM, two stages measured faster than
+// three (and three with one CTA an SM slower still) at gemma-2's widths
+constexpr int kStages = 2;
+constexpr int kPlanThreads = 1024;
+constexpr float kNegInf = -1e30f;              // the reference's masked logit
 
 template <int N>
 __device__ __forceinline__ void load_row(const float* __restrict__ p,
@@ -91,49 +109,232 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
   }
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Grid (splits, KVH, B); each of the kWarps warps of a CTA writes one
-// partial (m, l, acc) per query head of the group.
-template <typename T, int D, int GM>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const int* __restrict__ lengths, int H, int S,
-                           int KVH, int G, float scale, float softcap,
-                           int window, float* __restrict__ part_acc,
-                           float* __restrict__ part_ml) {
-  constexpr int N = D / 32;
-  constexpr int U = GM >= 4 ? 2 : 4;   // rows in flight per warp and step
-  const int splits = gridDim.x;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int P = splits * kWarps;
-  const int p = split * kWarps + warp;
+// 16 bytes global -> shared, bypassing L1; zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-  // the kept rows [lo, hi) of this batch row, cut into `splits` chunks
+// The kept rows [lo, hi) of batch row b (empty when hi <= lo).
+__device__ __forceinline__ void kept_rows(const int* __restrict__ lengths,
+                                          int b, int S, int window, int& lo,
+                                          int& hi) {
   const int len = max(lengths[b], 0);
-  const int hi = min(len, S);
-  const int lo = window > 0 ? max(len - window, 0) : 0;
-  const int total = max(hi - lo, 0);
-  const int chunk = (total + splits - 1) / splits;
-  const int c0 = lo + split * chunk;
-  const int c1 = min(c0 + chunk, hi);
+  hi = min(len, S);
+  lo = window > 0 ? max(len - window, 0) : 0;
+}
 
-  float qr[GM][N];
+// Exclusive prefix sum of v over the block; `total` gets the block's sum.
+// `sh` holds one value per warp.
+__device__ long long block_scan(long long v, long long* sh, long long& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  long long x = v;
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g < G) {
-      load_row(q + (static_cast<size_t>(b) * H + kvh * G + g) * D + lane * N,
-               qr[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) qr[g][i] = 0.f;
-    }
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
   }
+  if (lane == 31) sh[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    long long s = lane < nw ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nw) sh[lane] = s;
+  }
+  __syncthreads();
+  const long long pre = (w > 0 ? sh[w - 1] : 0) + x - v;
+  total = sh[nw - 1];
+  __syncthreads();
+  return pre;
+}
+
+// The plan (one block): for the NP = B * KVH pairs p = b * KVH + kvh,
+// tile_start[p] = tiles of the pairs before p (tile_start[NP] = all tiles),
+// tiles per CTA, and seg_start[p] = partial slots of the pairs before p,
+// where a pair owns one slot for each CTA that covers part of it.  Zeroes
+// the pairs' counters and the output of every pair with no kept row.
+template <typename T>
+__global__ void __launch_bounds__(kPlanThreads)
+decode_attn_plan_kernel(const int* __restrict__ lengths, int NP, int S,
+                        int KVH, int H, int G, int D, int window, int ctas,
+                        long long* __restrict__ tile_start,
+                        int* __restrict__ seg_start, int* __restrict__ count,
+                        long long* __restrict__ meta, T* __restrict__ out) {
+  __shared__ long long sh[32];
+  long long carry = 0, total;
+  for (int base = 0; base < NP; base += blockDim.x) {
+    const int p = base + threadIdx.x;
+    long long tiles = 0;
+    if (p < NP) {
+      int lo, hi;
+      kept_rows(lengths, p / KVH, S, window, lo, hi);
+      tiles = hi > lo ? (hi - lo + kRows - 1) / kRows : 0;
+      count[p] = 0;
+      if (tiles == 0) {
+        T* o = out + (static_cast<size_t>(p / KVH) * H + (p % KVH) * G) * D;
+        for (int i = 0; i < G * D; ++i) store(o + i, 0.f);
+      }
+    }
+    const long long pre = block_scan(tiles, sh, total);
+    if (p < NP) tile_start[p] = carry + pre;
+    carry += total;
+  }
+  if (threadIdx.x == 0) tile_start[NP] = carry;
+  const long long n_tiles = carry;
+  const long long per_cta = n_tiles > ctas ? (n_tiles + ctas - 1) / ctas : 1;
+  __syncthreads();
+  carry = 0;
+  for (int base = 0; base < NP; base += blockDim.x) {
+    const int p = base + threadIdx.x;
+    long long slots = 0;
+    if (p < NP) {
+      const long long s = tile_start[p], e = tile_start[p + 1];
+      slots = e > s ? (e - 1) / per_cta - s / per_cta + 1 : 0;
+    }
+    const long long pre = block_scan(slots, sh, total);
+    if (p < NP) seg_start[p] = static_cast<int>(carry + pre);
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    seg_start[NP] = static_cast<int>(carry);
+    meta[0] = n_tiles;
+    meta[1] = per_cta;
+  }
+}
+
+template <typename T, int D>
+struct Shape {
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));  // per chunk
+  static constexpr int CH = D / E;            // 16-byte chunks per row, >= 8
+  static constexpr int TILE = kRows * D;      // elements of a K or V tile
+  static constexpr int N = D / 32;            // elements per lane in P.V
+};
+
+template <typename T, int D, int GM>
+constexpr int smem_bytes() {
+  return static_cast<int>(kStages * 2 * Shape<T, D>::TILE * sizeof(T)
+                          + GM * D * sizeof(T) + kWarps * (D + 2) * sizeof(float)
+                          + 16);
+}
+
+// Where a CTA stands in its run of tiles: global tile t of pair p, whose
+// tiles are [first, end) and whose kept rows are [lo, hi).
+struct Cursor {
+  long long t, first, end;
+  int p, lo, hi;
+};
+
+struct Plan {
+  const int* lengths;
+  const long long* tile_start;
+  int S, KVH, window;
+
+  __device__ __forceinline__ void enter(Cursor& c) const {
+    c.first = tile_start[c.p];
+    c.end = tile_start[c.p + 1];
+    kept_rows(lengths, c.p / KVH, S, window, c.lo, c.hi);
+  }
+  // the next tile; past t1 the cursor is left as it is
+  __device__ __forceinline__ void advance(Cursor& c, long long t1) const {
+    if (++c.t < c.end || c.t >= t1) return;
+    do {
+      ++c.p;
+    } while (tile_start[c.p + 1] <= c.t);   // skip pairs with no rows
+    enter(c);
+  }
+};
+
+// The K and V rows of the cursor's tile into one ring stage (K tile, then
+// V tile, kRows x D each); rows past the pair's end are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* stage, const Cursor& c,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v, int S,
+                                          int KVH) {
+  using Sh = Shape<T, D>;
+  const int row0 = c.lo + static_cast<int>(c.t - c.first) * kRows;
+  const size_t stride = static_cast<size_t>(KVH) * D;
+  const size_t base = (static_cast<size_t>(c.p / KVH) * S + row0) * stride
+                      + static_cast<size_t>(c.p % KVH) * D;
+  static_assert(2 * kRows * Sh::CH % kThreads == 0, "whole rounds");
+#pragma unroll
+  for (int it = 0; it < 2 * kRows * Sh::CH / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int which = i / (kRows * Sh::CH);          // 0: K, 1: V
+    const int j = i - which * kRows * Sh::CH;
+    const int r = j / Sh::CH, ch = j - r * Sh::CH;
+    const T* src = which ? v : k;
+    const bool ok = row0 + r < c.hi;
+    cp_async16(stage + which * Sh::TILE + r * D + ch * Sh::E,
+               ok ? src + base + r * stride + ch * Sh::E : src, ok);
+  }
+}
+
+// Grid: as many CTAs as the SMs hold at once; CTA c takes tiles
+// [c * per_cta, (c + 1) * per_cta) of the plan's sequence.
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, Plan plan, int NP, int H, int G,
+                   float scale, float softcap,
+                   const int* __restrict__ seg_start, int* __restrict__ count,
+                   const long long* __restrict__ meta,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   T* __restrict__ out) {
+  using Sh = Shape<T, D>;
+  constexpr int N = Sh::N;
+  constexpr int E = Sh::E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  T* qs = ring + kStages * 2 * Sh::TILE;    // q of the pair, in its dtype
+  float* mb = reinterpret_cast<float*>(qs + GM * D);  // warps' states
+  int* last = reinterpret_cast<int*>(mb + kWarps * (D + 2));
+
+  const long long n_tiles = meta[0], per_cta = meta[1];
+  const long long t0 = static_cast<long long>(blockIdx.x) * per_cta;
+  if (t0 >= n_tiles) return;
+  const long long t1 = min(t0 + per_cta, n_tiles);
+  const long long n = t1 - t0;
+
+  // the first pair: the last p with tile_start[p] <= t0
+  int lo = 0, hi = NP;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (plan.tile_start[mid] <= t0) lo = mid; else hi = mid - 1;
+  }
+  Cursor ld;
+  ld.t = t0;
+  ld.p = lo;
+  plan.enter(ld);
+  Cursor cur = ld;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row = warp * kRowsPerWarp + (lane >> 3);  // the row it scores
+  const int part = lane & 7;                          // its eighth of it
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   float m[GM], l[GM], acc[GM][N];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -143,146 +344,272 @@ decode_attn_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < N; ++i) acc[g][i] = 0.f;
   }
 
-  const size_t row = static_cast<size_t>(KVH) * D;   // stride between s
-  const size_t off = static_cast<size_t>(b) * S * row
-                     + static_cast<size_t>(kvh) * D + lane * N;
-  for (int s0 = c0 + warp * U; s0 < c1; s0 += kWarps * U) {
-    float kr[U][N], vr[U][N];
-    bool ok[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ok[u] = s0 + u < c1;
-      if (ok[u]) {
-        load_row(k + off + static_cast<size_t>(s0 + u) * row, kr[u]);
-        load_row(v + off + static_cast<size_t>(s0 + u) * row, vr[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) kr[u][i] = vr[u][i] = 0.f;
-      }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) {
+      load_tile<T, D>(ring + s * 2 * Sh::TILE, ld, k, v, plan.S, plan.KVH);
+      plan.advance(ld, t1);
     }
-    float x[U][GM];
+    cp_async_commit();
+  }
+  for (long long i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();            // tile i has landed; stage i - 1 is free
+    if (i + kStages - 1 < n) {
+      load_tile<T, D>(ring + ((i + kStages - 1) % kStages) * 2 * Sh::TILE,
+                      ld, k, v, plan.S, plan.KVH);
+      plan.advance(ld, t1);
+    }
+    cp_async_commit();
+    const int b = cur.p / plan.KVH, kvh = cur.p % plan.KVH;
+    if (i == 0 || cur.t == cur.first) {       // a new pair: its q heads
+      for (int j = tid; j < GM * D; j += kThreads) {
+        const int g = j / D;
+        store(qs + j, g < G ? to_float(q[(static_cast<size_t>(b) * H
+                                          + kvh * G + g) * D + (j - g * D)])
+                            : 0.f);
+      }
+      __syncthreads();
+    }
+    const T* ks = ring + (i % kStages) * 2 * Sh::TILE;
+    const T* vs = ks + Sh::TILE;
+    const int valid = cur.hi - cur.lo
+                      - static_cast<int>(cur.t - cur.first) * kRows;
+    const bool ok = row < valid;
+
+    // this lane's eighth of its row's logits, for every head
+    float x[GM];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int g = 0; g < GM; ++g) x[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < Sh::CH / 8; ++j) {
+      const int c = part + 8 * j;
+      float kf[E];
+      load_row<E>(ks + row * D + c * E, kf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float d = 0.f;
+        float qf[E];
+        load_row<E>(qs + g * D + c * E, qf);
 #pragma unroll
-        for (int i = 0; i < N; ++i) d = __fmaf_rn(qr[g][i], kr[u][i], d);
-        x[u][g] = d;
+        for (int e = 0; e < E; ++e) x[g] = __fmaf_rn(qf[e], kf[e], x[g]);
       }
     }
+    // one online-softmax step per head for the warp's four rows
+    float alpha[GM], pr[GM][kRowsPerWarp];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
+    for (int g = 0; g < GM; ++g) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int o = 1; o < 8; o <<= 1) {
+        x[g] += __shfl_xor_sync(0xffffffffu, x[g], o);
+      }
+      float t = x[g] * scale;
+      if (softcap > 0.f) t = softcap * tanhf(t * inv_cap);
+      t = ok ? t : kNegInf;
+      float mx = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      mx = fmaxf(m[g], mx);
+      alpha[g] = expf(m[g] - mx);
+      const float p = ok ? expf(t - mx) : 0.f;
+      float ps = p + __shfl_xor_sync(0xffffffffu, p, 8);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      l[g] = __fmaf_rn(l[g], alpha[g], ps);
+      m[g] = mx;
 #pragma unroll
-        for (int g = 0; g < GM; ++g) {
-          x[u][g] += __shfl_xor_sync(0xffffffffu, x[u][g], o);
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        pr[g][r] = __shfl_sync(0xffffffffu, p, 8 * r);
+      }
+    }
+    // P.V: each lane owns N columns of the warp's four V rows
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[g][e] *= alpha[g];
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      float vf[N];
+      load_row<N>(vs + (warp * kRowsPerWarp + r) * D + lane * N, vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          acc[g][e] = __fmaf_rn(pr[g][r], vf[e], acc[g][e]);
         }
       }
     }
+
+    if (cur.t + 1 == cur.end || i + 1 == n) {
+      // the end of this CTA's part of the pair: merge the warps, then write
+      // the output (the CTA covers the pair whole) or a partial
+      const long long cta0 = cur.first / per_cta;
+      const int slots = static_cast<int>((cur.end - 1) / per_cta - cta0 + 1);
+      const int slot = seg_start[cur.p] + static_cast<int>(blockIdx.x - cta0);
+      const size_t bh0 = static_cast<size_t>(b) * H + kvh * G;
 #pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      float mx = m[g];
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        float* w = mb + warp * (D + 2);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float t = x[u][g] * scale;
-        if (softcap > 0.f) t = softcap * tanhf(t / softcap);
-        x[u][g] = ok[u] ? t : kNegInf;
-        mx = fmaxf(mx, x[u][g]);
+        for (int e = 0; e < N; ++e) w[lane * N + e] = acc[g][e];
+        if (lane == 0) {
+          w[D] = m[g];
+          w[D + 1] = l[g];
+        }
+        __syncthreads();
+        if (tid < D) {
+          float M = kNegInf;
+#pragma unroll
+          for (int j = 0; j < kWarps; ++j) M = fmaxf(M, mb[j * (D + 2) + D]);
+          float L = 0.f, A = 0.f;
+#pragma unroll
+          for (int j = 0; j < kWarps; ++j) {
+            const float s = expf(mb[j * (D + 2) + D] - M);
+            L = __fmaf_rn(mb[j * (D + 2) + D + 1], s, L);
+            A = __fmaf_rn(mb[j * (D + 2) + tid], s, A);
+          }
+          if (slots == 1) {
+            store(out + (bh0 + g) * D + tid, A / fmaxf(L, 1e-30f));
+          } else {
+            const size_t ps = static_cast<size_t>(slot) * G + g;
+            part_acc[ps * D + tid] = A;
+            if (tid == 0) {
+              part_ml[ps * 2] = M;
+              part_ml[ps * 2 + 1] = L;
+            }
+          }
+        }
+        __syncthreads();
       }
-      const float alpha = expf(m[g] - mx);
-      float pu[U], psum = 0.f;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        pu[u] = ok[u] ? expf(x[u][g] - mx) : 0.f;
-        psum += pu[u];
+      for (int g = 0; g < GM; ++g) {
+        m[g] = kNegInf;
+        l[g] = 0.f;
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[g][e] = 0.f;
       }
-      l[g] = l[g] * alpha + psum;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        float a = acc[g][i] * alpha;
-#pragma unroll
-        for (int u = 0; u < U; ++u) a = __fmaf_rn(pu[u], vr[u][i], a);
-        acc[g][i] = a;
+      if (slots > 1) {
+        // the last CTA to finish the pair merges its partials
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) *last = atomicAdd(count + cur.p, 1) == slots - 1;
+        __syncthreads();
+        if (*last) {
+          __threadfence();
+          const size_t s0 = static_cast<size_t>(seg_start[cur.p]);
+          for (int j = tid; j < G * D; j += kThreads) {
+            const int g = j / D, d = j - g * D;
+            float M = kNegInf;
+            for (int s = 0; s < slots; ++s) {
+              M = fmaxf(M, __ldcg(part_ml + ((s0 + s) * G + g) * 2));
+            }
+            float L = 0.f, A = 0.f;
+            for (int s = 0; s < slots; ++s) {
+              const size_t ps = (s0 + s) * G + g;
+              const float w = expf(__ldcg(part_ml + ps * 2) - M);
+              L = __fmaf_rn(__ldcg(part_ml + ps * 2 + 1), w, L);
+              A = __fmaf_rn(__ldcg(part_acc + ps * D + d), w, A);
+            }
+            store(out + (bh0 + g) * D + d, A / fmaxf(L, 1e-30f));
+          }
+        }
       }
-      m[g] = mx;
     }
+    plan.advance(cur, t1);
   }
+}
 
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-    const size_t idx = (static_cast<size_t>(b) * H + kvh * G + g) * P + p;
-#pragma unroll
-    for (int i = 0; i < N; ++i) part_acc[idx * D + lane * N + i] = acc[g][i];
-    if (lane == 0) {
-      part_ml[idx * 2] = m[g];
-      part_ml[idx * 2 + 1] = l[g];
+// Byte offsets of the scratch: the plan's arrays and the partial slots
+// (at most one per CTA plus one per pair).
+struct Layout {
+  long long tile_start, meta, acc, ml, seg_start, count, bytes;
+  Layout(long long B, long long H, long long KVH, long long D, long long ctas) {
+    const long long NP = B * KVH, G = H / KVH, slots = ctas + NP;
+    auto up = [](long long x) { return (x + 15) / 16 * 16; };
+    tile_start = 0;
+    meta = up((NP + 1) * 8);
+    acc = meta + 16;
+    ml = up(acc + slots * G * D * 4);
+    seg_start = up(ml + slots * G * 2 * 4);
+    count = up(seg_start + (NP + 1) * 4);
+    bytes = up(count + NP * 4);
+  }
+};
+
+// Dispatch to the instantiation for D and the group size G.
+template <typename T, int D, typename F>
+int with_group(long long G, const F& f) {
+  if (G <= 1) return f.template run<T, D, 1>();
+  if (G <= 2) return f.template run<T, D, 2>();
+  if (G <= 4) return f.template run<T, D, 4>();
+  return f.template run<T, D, 8>();
+}
+
+template <typename T, typename F>
+int with_kernel(long long D, long long G, const F& f) {
+  if (D == 64) return with_group<T, 64>(G, f);
+  if (D == 128) return with_group<T, 128>(G, f);
+  return with_group<T, 256>(G, f);
+}
+
+// CTAs of one wave: the blocks an SM holds at once, times the SMs.
+struct CtasQuery {
+  int num_sms;
+  template <typename T, int D, int GM>
+  int run() const {
+    const int bytes = smem_bytes<T, D, GM>();
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_attn_kernel<T, D, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    int per_sm = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, decode_attn_kernel<T, D, GM>, kThreads, bytes);
     }
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    if (per_sm <= 0) return -static_cast<int>(cudaErrorInvalidConfiguration);
+    return per_sm * num_sms;
   }
-}
+};
 
-// Grid (B * H), block D: merge the P partials of each (b, h).
-template <typename T>
-__global__ void decode_attn_combine_kernel(const float* __restrict__ part_acc,
-                                           const float* __restrict__ part_ml,
-                                           int P, T* __restrict__ out) {
-  const size_t bh = blockIdx.x;
-  const int D = blockDim.x, d = threadIdx.x;
-  const float* ml = part_ml + bh * P * 2;
-  float mx = kNegInf;
-  for (int p = 0; p < P; ++p) mx = fmaxf(mx, ml[2 * p]);
-  float den = 0.f, num = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const float w = expf(ml[2 * p] - mx);
-    den = __fmaf_rn(ml[2 * p + 1], w, den);
-    num = __fmaf_rn(part_acc[(bh * P + p) * D + d], w, num);
+struct SmemQuery {
+  template <typename T, int D, int GM>
+  int run() const { return smem_bytes<T, D, GM>(); }
+};
+
+struct Launch {
+  const void *q, *k, *v;
+  Plan plan;
+  int NP, H, G, ctas;
+  float scale, softcap;
+  const int* seg_start;
+  int* count;
+  const long long* meta;
+  float *acc, *ml;
+  void* out;
+  cudaStream_t st;
+
+  template <typename T, int D, int GM>
+  int run() const {
+    const int bytes = smem_bytes<T, D, GM>();
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_attn_kernel<T, D, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    decode_attn_kernel<T, D, GM><<<ctas, kThreads, bytes, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), plan, NP, H, G, scale, softcap, seg_start,
+        count, meta, acc, ml, static_cast<T*>(out));
+    err = cudaGetLastError();
+    return err == cudaSuccess ? 0 : -static_cast<int>(err);
   }
-  store(out + bh * D + d, num / fmaxf(den, 1e-30f));
-}
+};
 
-// Splits per (b, kv_head): enough CTAs for two per SM, but at least 128
-// rows per CTA.
-inline int splits_for(long long B, long long S, long long KVH, int num_sms) {
-  const long long ctas = B * KVH;
-  const long long want = (2LL * num_sms + ctas - 1) / ctas;
-  const long long most = S / (kWarps * 16);
-  return static_cast<int>(std::max(1LL, std::min(want, most)));
-}
-
-inline long long scratch_floats(long long B, long long H, long long S,
-                                long long KVH, long long D, int num_sms) {
-  return B * H * splits_for(B, S, KVH, num_sms) * kWarps * (D + 2);
-}
-
-template <typename T, int D, int GM>
-void launch_partial(dim3 grid, cudaStream_t st, const T* q, const T* k,
-                    const T* v, const int* lengths, int H, int S, int KVH,
-                    int G, float scale, float softcap, int window, float* acc,
-                    float* ml) {
-  decode_attn_partial_kernel<T, D, GM><<<grid, kThreads, 0, st>>>(
-      q, k, v, lengths, H, S, KVH, G, scale, softcap, window, acc, ml);
-}
-
-template <typename T, int D>
-void launch_group(int G, dim3 grid, cudaStream_t st, const T* q, const T* k,
-                  const T* v, const int* lengths, int H, int S, int KVH,
-                  float scale, float softcap, int window, float* acc,
-                  float* ml) {
-  if (G <= 1) {
-    launch_partial<T, D, 1>(grid, st, q, k, v, lengths, H, S, KVH, G, scale,
-                            softcap, window, acc, ml);
-  } else if (G <= 2) {
-    launch_partial<T, D, 2>(grid, st, q, k, v, lengths, H, S, KVH, G, scale,
-                            softcap, window, acc, ml);
-  } else if (G <= 4) {
-    launch_partial<T, D, 4>(grid, st, q, k, v, lengths, H, S, KVH, G, scale,
-                            softcap, window, acc, ml);
-  } else {
-    launch_partial<T, D, 8>(grid, st, q, k, v, lengths, H, S, KVH, G, scale,
-                            softcap, window, acc, ml);
-  }
+bool valid_shape(long long B, long long H, long long S, long long KVH,
+                 long long D) {
+  return B > 0 && H > 0 && S >= 0 && KVH > 0 && H % KVH == 0
+         && H / KVH <= 8 && (D == 64 || D == 128 || D == 256)
+         && B * KVH <= (1LL << 24) && S <= (1LL << 30)
+         && B * S <= (1LL << 40);
 }
 
 template <typename T>
@@ -290,76 +617,81 @@ int launch_decode_attention(const void* q, const void* k, const void* v,
                             const void* lengths, long long B, long long H,
                             long long S, long long KVH, long long D,
                             float scale, float softcap, long long window,
-                            int num_sms, void* scratch, long long n_scratch,
+                            int ctas, void* scratch, long long n_scratch,
                             void* out, void* stream) {
-  if (B <= 0 || H <= 0 || S < 0 || KVH <= 0 || H % KVH != 0
-      || H / KVH > 8 || (D != 64 && D != 128 && D != 256) || window < 0
-      || B > 65535 || KVH > 65535 || S > (1LL << 30) || num_sms <= 0
-      || n_scratch < scratch_floats(B, H, S, KVH, D, num_sms)) {
+  if (!valid_shape(B, H, S, KVH, D) || window < 0 || ctas <= 0
+      || n_scratch < Layout(B, H, KVH, D, ctas).bytes) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  const int G = static_cast<int>(H / KVH);
-  const int splits = splits_for(B, S, KVH, num_sms);
-  const long long P = static_cast<long long>(splits) * kWarps;
-  float* acc = static_cast<float*>(scratch);
-  float* ml = acc + B * H * P * D;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(splits, static_cast<unsigned>(KVH), static_cast<unsigned>(B));
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const int* len = static_cast<const int*>(lengths);
-  const int h = static_cast<int>(H), s = static_cast<int>(S);
-  const int kv = static_cast<int>(KVH);
+  const Layout lay(B, H, KVH, D, ctas);
+  char* base = static_cast<char*>(scratch);
+  long long* tile_start = reinterpret_cast<long long*>(base + lay.tile_start);
+  long long* meta = reinterpret_cast<long long*>(base + lay.meta);
+  int* seg_start = reinterpret_cast<int*>(base + lay.seg_start);
+  int* count = reinterpret_cast<int*>(base + lay.count);
+  const int NP = static_cast<int>(B * KVH), G = static_cast<int>(H / KVH);
+  const int s = static_cast<int>(S), kv = static_cast<int>(KVH);
   const int w = static_cast<int>(std::min(window, 1LL << 30));
-  if (D == 64) {
-    launch_group<T, 64>(G, grid, st, tq, tk, tv, len, h, s, kv, scale, softcap,
-                        w, acc, ml);
-  } else if (D == 128) {
-    launch_group<T, 128>(G, grid, st, tq, tk, tv, len, h, s, kv, scale,
-                         softcap, w, acc, ml);
-  } else {
-    launch_group<T, 256>(G, grid, st, tq, tk, tv, len, h, s, kv, scale,
-                         softcap, w, acc, ml);
-  }
-  cudaError_t err = cudaGetLastError();
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  decode_attn_plan_kernel<T><<<1, kPlanThreads, 0, st>>>(
+      len, NP, s, kv, static_cast<int>(H), G, static_cast<int>(D), w, ctas,
+      tile_start, seg_start, count, meta, static_cast<T*>(out));
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return -static_cast<int>(err);
-  decode_attn_combine_kernel<T><<<static_cast<unsigned>(B * H),
-                                  static_cast<unsigned>(D), 0, st>>>(
-      acc, ml, static_cast<int>(P), static_cast<T*>(out));
-  err = cudaGetLastError();
-  return err == cudaSuccess ? 2 : -static_cast<int>(err);
+  const Launch f{q, k, v, Plan{len, tile_start, s, kv, w}, NP,
+                 static_cast<int>(H), G, ctas, scale, softcap, seg_start,
+                 count, meta, reinterpret_cast<float*>(base + lay.acc),
+                 reinterpret_cast<float*>(base + lay.ml), out, st};
+  const int rc = with_kernel<T>(D, G, f);
+  return rc < 0 ? rc : 2;
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  The launcher runs on the given
 // stream, does not synchronise, and returns the number of kernels it
-// launched (2: the partial pass and the merge), or minus the CUDA error.
-// The caller allocates `scratch` (float32, repro_decode_attention_scratch_floats of the
-// same shape) and `out` (B, H, D) in the inputs' dtype; lengths are int32.
+// launched (2: the plan and the attention kernel), or minus the CUDA
+// error.  The caller takes `ctas` from repro_decode_attention_ctas,
+// allocates `scratch` (repro_decode_attention_scratch_bytes of the same
+// shape and ctas, 16-byte aligned) and `out` (B, H, D) in the inputs'
+// dtype; lengths are int32.
 extern "C" {
 
-long long repro_decode_attention_scratch_floats(long long B, long long H,
-                                                long long S, long long KVH,
-                                                long long D, int num_sms) {
-  return scratch_floats(B, H, S, KVH, D, num_sms);
+// CTAs of one wave of the attention kernel for this group size, head
+// width and dtype (minus the CUDA error if the query fails).
+int repro_decode_attention_ctas(long long H, long long KVH, long long D,
+                                int bf16, int num_sms) {
+  if (!valid_shape(1, H, 0, KVH, D) || num_sms <= 0) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CtasQuery f{num_sms};
+  return bf16 ? with_kernel<__nv_bfloat16>(D, H / KVH, f)
+              : with_kernel<float>(D, H / KVH, f);
 }
 
-// CTAs per (b, kv_head) that the partial pass splits the kept range over.
-int repro_decode_attention_splits(long long B, long long S, long long KVH,
-                                  int num_sms) {
-  return splits_for(B, S, KVH, num_sms);
+// Dynamic shared memory of one CTA of that instantiation, in bytes.
+int repro_decode_attention_smem_bytes(long long H, long long KVH, long long D,
+                                      int bf16) {
+  if (!valid_shape(1, H, 0, KVH, D)) return -1;
+  return bf16 ? with_kernel<__nv_bfloat16>(D, H / KVH, SmemQuery{})
+              : with_kernel<float>(D, H / KVH, SmemQuery{});
+}
+
+long long repro_decode_attention_scratch_bytes(long long B, long long H,
+                                               long long KVH, long long D,
+                                               int ctas) {
+  return Layout(B, H, KVH, D, ctas).bytes;
 }
 
 int repro_decode_attention_f32(const void* q, const void* k, const void* v,
                                const void* lengths, long long B, long long H,
                                long long S, long long KVH, long long D,
                                float scale, float softcap, long long window,
-                               int num_sms, void* scratch, long long n_scratch,
+                               int ctas, void* scratch, long long n_scratch,
                                void* out, void* stream) {
   return launch_decode_attention<float>(q, k, v, lengths, B, H, S, KVH, D,
-                                        scale, softcap, window, num_sms,
+                                        scale, softcap, window, ctas,
                                         scratch, n_scratch, out, stream);
 }
 
@@ -367,10 +699,10 @@ int repro_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* lengths, long long B, long long H,
                                 long long S, long long KVH, long long D,
                                 float scale, float softcap, long long window,
-                                int num_sms, void* scratch,
-                                long long n_scratch, void* out, void* stream) {
+                                int ctas, void* scratch, long long n_scratch,
+                                void* out, void* stream) {
   return launch_decode_attention<__nv_bfloat16>(
-      q, k, v, lengths, B, H, S, KVH, D, scale, softcap, window, num_sms,
+      q, k, v, lengths, B, H, S, KVH, D, scale, softcap, window, ctas,
       scratch, n_scratch, out, stream);
 }
 

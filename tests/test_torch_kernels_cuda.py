@@ -86,13 +86,17 @@ def test_decode_attention_on_card_equals_plain(case):
     want = attention.decode_attention_plain(*(x.float() for x in t), lt,
                                             softcap=cap, window=win)
     torch.cuda.synchronize()
-    # the partial pass and the merge of the splits
+    # the plan and the attention kernel
     assert probe.launch_counts["decode_attention"] == before + 2
     assert out.dtype == dt and out.shape == want.shape
     tol = attention_tol(dt)
     torch.testing.assert_close(out.float(), want, **tol)
     if case == "length_0":
         assert not out[0].any()
+    elif case == "skewed_lengths":
+        assert not out[1].any()
+    elif case == "all_zero_lengths":
+        assert not out.any()
     elif case.startswith("softcap_range"):
         # control: the same kernel without the softcap must fail the limit
         nocap = attention.decode_attention(*t, lt, softcap=0.0, window=win)

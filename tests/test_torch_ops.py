@@ -75,11 +75,16 @@ def test_decode_attention_bf16_matches_pallas():
 
 @pytest.mark.parametrize("case", ["length_0", "shorter_than_window",
                                   "head_mapping", "softcap_range",
-                                  "softcap_range_bf16"])
+                                  "softcap_range_bf16", "skewed_lengths",
+                                  "many_pairs", "all_zero_lengths"])
 def test_decode_attention_edges_match_pallas(case):
     got = _check_attention(case)
     if case == "length_0":
         assert not got[0].any()
+    elif case == "skewed_lengths":
+        assert not got[1].any() and got[2:].any()
+    elif case == "all_zero_lengths":
+        assert not got.any()
     elif case == "head_mapping":
         # query head h reads KV head h // G, whose values are all h // G + 1
         heads = attention_case(case)["heads"]
