@@ -12,8 +12,11 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    ``src/repro_torch/kernels/csrc`` built with nvcc (time and ptxas report);
 2. kernels — ``sorted_probe`` and ``probe_pick`` against their plain PyTorch
    versions on the card, at the main path's shapes (UQ1's indexes with one
-   piece batch of queries) and on edge sweeps, exact equality; CUDA-event
+   piece batch of queries) and on edge sweeps, exact equality; device
    times of kernel, plain version and ``torch.searchsorted``, and the bound;
+   for ``sorted_probe`` also its bound shares and ratios to the library at
+   the orders and lineitem indexes, its group width G and levels (dependent
+   loads), launches per call and the ptxas report of both key widths;
 3. draw parity — every UQ1 ``TorchTreeJoin`` draws identically through the
    kernels and through the plain versions on the same uniforms;
 4. main path — ``SetUnionSampler(backend="torch", device="cuda")`` on UQ1
@@ -34,12 +37,14 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    softcap's range (within rtol 1e-2, atol 1e-3 of the plain version in
    fp32; the kernel at softcap 0 must fail that limit on the last);
    ``searchsorted``, ``walk_hop`` and ``ranged_weighted_pick`` equal to the
-   same calls on CPU tensors.  Edge sweeps of both new kernels, and times
+   same calls on CPU tensors.  Edge sweeps of both kernels, and times
    against the bound, the plain version and the library call
    (``torch.unique_consecutive``; ``scaled_dot_product_attention`` at
-   softcap 0); for decode attention also the bound shares, the ratio to
-   the library, its CTAs (one wave) and the ptxas report of the bf16,
-   D 256, G 2 instantiation that these widths launch;
+   softcap 0); for both the bound shares and the ratios to the library;
+   for ``segdegree`` its launches per call, CTAs (one wave) and the ptxas
+   report of both key widths; for decode attention its CTAs (one wave) and
+   the ptxas report of the bf16, D 256, G 2 instantiation that these
+   widths launch;
 6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``);
 7. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
    exact union (chi-square), on the card.
@@ -130,6 +135,16 @@ def _device_ms(fn, reps: int = 100, warm: int = 10) -> float:
     return sum(us for _, us in _device_events(fn, reps)) / reps / 1e3
 
 
+def _device_us_by_op(fn, reps: int = 100, warm: int = 10) -> dict:
+    """Device microseconds per call of ``fn``, by kernel or copy name."""
+    for _ in range(warm):
+        fn()
+    out: dict = {}
+    for name, us in _device_events(fn, reps):
+        out[name] = out.get(name, 0.0) + us / reps
+    return out
+
+
 def _keys_touched(keys, queries) -> int:
     """Distinct key positions that the lower- and upper-bound searches of
     this query batch compare against (the kernels' search, replayed level by
@@ -171,6 +186,36 @@ def _bound(keys, queries, pick: bool):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _search_levels(n: int, group: int) -> int:
+    """Dependent loads of ``sorted_probe``'s group search over n keys: each
+    level leaves at most floor(len / (group + 1)) keys unread, and the last
+    reads the at most ``group`` keys left."""
+    levels = 0
+    while n > 0:
+        levels += 1
+        n = 0 if n <= group else n // (group + 1)
+    return levels
+
+
+def _launches_per_call(kernel: str, fn) -> int:
+    """Kernels that one call of ``fn`` adds to ``launch_counts[kernel]``."""
+    import torch
+    from repro_torch.kernels import build
+    before = build.launch_counts[kernel]
+    fn()
+    torch.cuda.synchronize()
+    return build.launch_counts[kernel] - before
+
+
+def _ptxas_pair(kernel: str) -> dict:
+    """The ptxas report of the int32 and int64 instantiations of a kernel
+    templated on its key type."""
+    from repro_torch.kernels import build
+    log = build.build()["log"]
+    return {"int32": _ptxas_stats(log, kernel, "kernelIiE"),
+            "int64": _ptxas_stats(log, kernel, "kernelIlE")}
 
 
 def _check_equal(a, b, what: str) -> None:
@@ -228,7 +273,7 @@ def phase_kernels(sampler) -> list:
     index (the largest ``sorted_probe`` sees) and lineitem index (what
     ``probe_pick`` sees; ``sorted_probe`` is timed there too)."""
     import torch
-    from repro_torch.kernels import probe
+    from repro_torch.kernels import build, probe
     tree = sampler.backend.trees[sampler.order[0]]
     batch = sampler.engine.piece_batches[0]
     weighted = [i for i, c in enumerate(tree.node_cfgs)
@@ -281,6 +326,20 @@ def phase_kernels(sampler) -> list:
                 lambda: (torch.searchsorted(lk, lq, side="left"),
                          torch.searchsorted(lk, lq, side="right")))
             row["lineitem_bound_ms"] = _bound(lk, lq, pick=False)[0]
+            g = build.load().repro_sorted_probe_group()
+            row.update({
+                "G": g, "levels": _search_levels(keys.numel(), g),
+                "lineitem_levels": _search_levels(lk.numel(), g),
+                "binary_search_levels": math.ceil(math.log2(keys.numel() + 1)),
+                "bound_share": bound_ms / row["ms"],
+                "lineitem_bound_share": (row["lineitem_bound_ms"]
+                                         / row["lineitem_ms"]),
+                "vs_library": row["ms"] / row["library_ms"],
+                "lineitem_vs_library": (row["lineitem_ms"]
+                                        / row["lineitem_library_ms"]),
+                "launches_per_call": _launches_per_call("sorted_probe", kern),
+                "ptxas": _ptxas_pair("sorted_probe_kernel"),
+            })
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = bound_ms * 1e3
         out.append(row)
@@ -491,8 +550,9 @@ def _attention_bound(q, k, lengths, window: int):
 
 
 def _ptxas_stats(log: str, kernel: str, instance: str) -> dict:
-    """Registers and spills that nvcc's ``-Xptxas -v`` report gives the
-    kernel whose mangled name holds ``kernel`` and ``instance``."""
+    """Registers, spills and static shared memory that nvcc's ``-Xptxas -v``
+    report gives the kernel whose mangled name holds ``kernel`` and
+    ``instance``."""
     lines = log.splitlines()
     for i, ln in enumerate(lines):
         if "Compiling entry" in ln and kernel in ln and instance in ln:
@@ -505,27 +565,36 @@ def _ptxas_stats(log: str, kernel: str, instance: str) -> dict:
                     elif w == "spill" and words[j + 1] in ("stores", "loads"):
                         out["spill_" + words[j + 1] + "_bytes"] = int(
                             words[j - 2])
+                    elif w == "smem":
+                        out["smem_bytes"] = int(words[j - 2])
             return out
     raise AssertionError(f"no ptxas report for {kernel} {instance}")
 
 
 def phase_ops_sweeps() -> dict:
-    """The two new kernels against their plain versions on the shared edge
-    cases (``repro_torch.kernels.cases``): segdegree exact (int64, and int32
-    where the keys fit); decode attention within ``attention_tol`` of the
-    plain version in fp32 from the same inputs."""
+    """segdegree and decode attention against their plain versions on the
+    shared edge cases (``repro_torch.kernels.cases``): segdegree exact
+    (int64, and int32 where the keys fit; misaligned views, and runs on the
+    kernel's own CTA-range boundaries); decode attention within
+    ``attention_tol`` of the plain version in fp32 from the same inputs."""
     import torch
     from repro_torch.kernels import attention, segdegree
     from repro_torch.kernels.cases import (ATTENTION_CASES,
                                            SEGDEGREE_CARD_CASES,
                                            SEGDEGREE_CASES, attention_case,
                                            attention_tol, key_dtypes,
-                                           segdegree_keys)
+                                           segdegree_card_case)
     n_seg = 0
+    dev = torch.device("cuda", 0)
     for name in SEGDEGREE_CASES + SEGDEGREE_CARD_CASES:
-        keys = segdegree_keys(name)
-        for dt in key_dtypes(keys):
-            kt = torch.as_tensor(keys, device="cuda").to(dt)
+        for dt in (torch.int64, torch.int32):
+            # the boundary cases follow the CTA ranges of a call of this width
+            width = 4 if dt == torch.int32 else 8
+            base, off = segdegree_card_case(
+                name, lambda n: segdegree.cta_keys(n, width, dev))
+            if dt not in key_dtypes(base):
+                continue
+            kt = torch.as_tensor(base, device="cuda").to(dt)[off:]
             got, want = segdegree.segdegree(kt), segdegree.segdegree_plain(kt)
             if got != want:
                 raise AssertionError(f"segdegree {name} {dt}: kernel {got} "
@@ -676,7 +745,26 @@ def phase_ops(sampler, seed: int):
         "lineitem_library_ms": _device_ms(
             lambda: torch.unique_consecutive(lk, return_counts=True), reps=20),
         "uq1_columns": [[c.numel()] + list(d) for c, d in zip(cols, degrees)],
+        # what one call at the lineitem index puts on the device (the
+        # ticket's memset and the kernel), and the fixed cost of a call
+        "lineitem_device_us_by_op": _device_us_by_op(
+            lambda: segdegree.segdegree(lk), reps=50),
+        "one_cta_ms": _device_ms(lambda: segdegree.segdegree(lk[:2048]),
+                                 reps=50),
+        "launches_per_call": _launches_per_call(
+            "segdegree", lambda: segdegree.segdegree(big)),
+        # one wave of CTAs, each an equal range of the column
+        "ctas": min(segdegree.kernel_wave(8, big.device),
+                    -(-big.numel() // segdegree.cta_keys(big.numel(), 8,
+                                                         big.device))),
+        "ptxas": _ptxas_pair("segdegree_kernel"),
     }
+    seg_row["bound_share"] = b_ms / seg_row["ms"]
+    seg_row["lineitem_bound_share"] = (seg_row["lineitem_bound_ms"]
+                                       / seg_row["lineitem_ms"])
+    seg_row["vs_library"] = seg_row["ms"] / seg_row["library_ms"]
+    seg_row["lineitem_vs_library"] = (seg_row["lineitem_ms"]
+                                      / seg_row["lineitem_library_ms"])
 
     # decode attention: the global layer; the local layer and softcap 0
     # beside it, and the library at softcap 0 (no PyTorch call applies a

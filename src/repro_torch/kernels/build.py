@@ -37,17 +37,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # argtypes of every exported C function: pointers and the stream are
 # c_void_p, sizes c_longlong; the launchers return the number of kernels
 # they launched, or minus the CUDA error, as an int; the scratch-size
-# queries return a c_longlong, the CTA and shared-memory queries an int
+# queries return a c_longlong, the CTA, group and shared-memory queries an
+# int
 _P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ATTN = (_P, _P, _P, _P, _N, _N, _N, _N, _N, _F, _F, _N, _I, _P, _N, _P, _P)
 _SIGNATURES = {
+    "repro_sorted_probe_group": (_I, ()),
     "repro_sorted_probe_i32": (_I, (_P, _N, _P, _N, _P, _P, _P)),
     "repro_sorted_probe_i64": (_I, (_P, _N, _P, _N, _P, _P, _P)),
     "repro_probe_pick_i32": (_I, (_P, _N, _P, _P, _N, _P, _P, _P)),
     "repro_probe_pick_i64": (_I, (_P, _N, _P, _P, _N, _P, _P, _P)),
-    "repro_segdegree_scratch_bytes": (_N, (_N,)),
-    "repro_segdegree_i32": (_I, (_P, _N, _P, _N, _P, _P)),
-    "repro_segdegree_i64": (_I, (_P, _N, _P, _N, _P, _P)),
+    "repro_segdegree_wave": (_I, (_I, _I)),
+    "repro_segdegree_scratch_bytes": (_N, (_I,)),
+    "repro_segdegree_cta_keys": (_N, (_N, _I)),
+    "repro_segdegree_i32": (_I, (_P, _N, _I, _P, _N, _P, _P)),
+    "repro_segdegree_i64": (_I, (_P, _N, _I, _P, _N, _P, _P)),
     "repro_decode_attention_ctas": (_I, (_N, _N, _N, _I, _I)),
     "repro_decode_attention_smem_bytes": (_I, (_N, _N, _N, _I)),
     "repro_decode_attention_scratch_bytes": (_N, (_N, _N, _N, _N, _I)),

@@ -18,11 +18,15 @@ I64_MAX = np.iinfo(np.int64).max
 I64_MIN = np.iinfo(np.int64).min
 
 
+I32_MAX = np.iinfo(np.int32).max
+I32_MIN = np.iinfo(np.int32).min
+
+
 def key_dtypes(*arrays: np.ndarray) -> List[torch.dtype]:
     """int64, and int32 wherever every value fits."""
     vals = np.concatenate([np.asarray(a, np.int64).ravel() for a in arrays])
     out = [torch.int64]
-    if vals.size == 0 or (np.abs(vals.astype(np.float64)) < 2**31).all():
+    if vals.size == 0 or (vals.min() >= I32_MIN and vals.max() <= I32_MAX):
         out.append(torch.int32)
     return out
 
@@ -31,15 +35,46 @@ def key_dtypes(*arrays: np.ndarray) -> List[torch.dtype]:
 # sorted probe and probe-and-pick: (keys, queries), keys sorted int64
 # ---------------------------------------------------------------------------
 
+# The card's search cuts a range into G + 1 parts per level with G lanes
+# (G = 8, 16 or 32): n below, at and around G and (G + 1)^2 = 33^2, runs
+# longer than many splitter gaps, and queries at the dtype's extremes.
 PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45",
-               "single_key", "empty_keys"]
-# the cases the reference's Pallas kernels take (at least two key blocks)
-PALLAS_PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45"]
+               "single_key", "empty_keys", "runs_straddle_splitters",
+               "n_1088", "n_1089", "n_1090", "extremes_i32",
+               "extremes_i64"] + [f"n_{n}" for n in range(1, 41)]
+# the cases the reference's Pallas kernels take (at least two key blocks;
+# not extremes_i64: walk_hop_pallas pads the keys with INT64_MAX and counts
+# the pads in the degree of a query equal to INT64_MAX)
+PALLAS_PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45",
+                      "runs_straddle_splitters", "n_1088", "n_1089",
+                      "n_1090", "extremes_i32"]
+
+
+def _small_keys(rng, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """n sorted keys with repeats; every value from below the first key to
+    above the last as a query, and a few far outside."""
+    keys = np.sort(rng.integers(0, max(n // 2, 1) + 2, n)) * 3 - 7
+    qs = np.concatenate([np.arange(keys[0] - 2, keys[-1] + 3),
+                         [-10**6, 10**6]])
+    return keys, qs
 
 
 def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(PROBE_CASES.index(name))
-    if name == "runs_straddle_blocks":
+    if name.startswith("n_"):
+        keys, qs = _small_keys(rng, int(name[2:]))
+    elif name == "runs_straddle_splitters":
+        # three runs of 100,000 keys: each spans many splitter gaps of the
+        # top levels, so lo and hi part at the first splitter equal to q
+        keys = np.repeat(np.arange(3, dtype=np.int64), 100_000)
+        qs = np.array([-1, 0, 1, 2, 3, 0, 1, 2], np.int64)
+    elif name.startswith("extremes_"):
+        lo, hi = ((I32_MIN, I32_MAX) if name.endswith("i32")
+                  else (I64_MIN, I64_MAX))
+        keys = np.concatenate([[lo, lo], np.sort(rng.integers(-1000, 1000, 97)),
+                               [hi]])
+        qs = np.array([lo, lo + 1, keys[2], keys[-2], hi - 1, hi, 0], np.int64)
+    elif name == "runs_straddle_blocks":
         keys = np.repeat(np.arange(5, dtype=np.int64), 200)     # 1000 keys
         qs = np.arange(-1, 7, dtype=np.int64)
     elif name == "below_and_above":
@@ -64,8 +99,50 @@ def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
 SEGDEGREE_CASES = [f"sweep_{i}" for i in range(12)] + [
     "run_spanning_many_blocks", "empty", "single", "negative", "int64_max",
     "int64_min", "all_distinct", "tile_aligned_runs", "runs_straddle_tiles"]
-# millions of keys: more than one merge level of the card's kernel
-SEGDEGREE_CARD_CASES = ["multi_level_merge", "run_across_every_tile"]
+# millions of keys, and the edges of the card's kernel: views whose first
+# key is not 16-byte aligned, columns shorter than one 16-byte vector, runs
+# that end on a CTA's (or a warp's) range boundary or one key past it, and
+# one run across every CTA's range
+SEGDEGREE_CARD_CASES = ["multi_level_merge", "run_across_every_tile",
+                        "view_offset_1", "view_offset_2", "view_offset_3",
+                        "short_1", "short_2", "short_3",
+                        "run_ends_on_cta_boundary",
+                        "run_ends_past_cta_boundary",
+                        "run_ends_on_warp_boundary", "run_across_every_cta"]
+# the card's kernel cuts a call into CTAs of cta_keys keys and each CTA
+# into this many warps
+SEGDEGREE_WARPS = 8
+SEGDEGREE_BOUNDARY_KEYS = 3_000_000
+
+
+def segdegree_card_case(name: str, cta_keys) -> Tuple[np.ndarray, int]:
+    """``(base, offset)`` for any segdegree case: the column is
+    ``base[offset:]`` (a view when offset > 0).  ``cta_keys(n)`` gives the keys of each CTA's range in a
+    call of n keys, as the card's kernel cuts it."""
+    if name in SEGDEGREE_CASES or name in ("multi_level_merge",
+                                           "run_across_every_tile"):
+        return segdegree_keys(name), 0
+    rng = np.random.default_rng(SEGDEGREE_CARD_CASES.index(name) + 100)
+    if name.startswith("view_offset_"):
+        off = int(name[-1])
+        base = np.sort(rng.integers(0, 5000, 100_003 + off))
+        return base.astype(np.int64), off
+    if name.startswith("short_"):
+        n = int(name[-1])
+        return np.sort(rng.integers(0, 2, n + 1)).astype(np.int64), 1
+    n = SEGDEGREE_BOUNDARY_KEYS
+    k = int(cta_keys(n))
+    i = np.arange(n, dtype=np.int64)
+    if name == "run_ends_on_cta_boundary":
+        keys = i // k                       # run c is CTA c's range
+    elif name == "run_ends_past_cta_boundary":
+        keys = (i + k - 1) // k             # each run ends one key past
+    elif name == "run_ends_on_warp_boundary":
+        keys = i // max(k // SEGDEGREE_WARPS, 1)
+    else:                                   # run_across_every_cta
+        keys = np.concatenate([np.zeros(n - 60, np.int64),
+                               np.repeat(np.arange(1, 21), 3)])
+    return keys, 0
 
 
 def segdegree_keys(name: str) -> np.ndarray:
@@ -92,7 +169,7 @@ def segdegree_keys(name: str) -> np.ndarray:
         "runs_straddle_tiles": lambda: np.repeat(np.arange(7), 1999),
         "multi_level_merge": lambda: np.repeat(
             np.arange(1_250_000), rng.integers(1, 8, 1_250_000)),
-        # one run through every tile and both merge levels, then short runs
+        # one run of 2048^2 + 1 keys across many CTA ranges, then short runs
         "run_across_every_tile": lambda: np.repeat(
             np.arange(3), [2048 * 2048 + 1, 5, 2048 * 3]),
     }[name]()

@@ -9,27 +9,42 @@
 //   the same search, then d = hi - lo and the ranged uniform pick
 //   pos = lo + min(floor(u * max(d, 1)), max(d - 1, 0)) in float32.
 //
-// What bounds them on the H100: each query is two binary searches of
-// ceil(log2(n + 1)) dependent loads.  At the main path's shapes (UQ1's
-// lineitem index, ~3.6 M int32 keys = 14 MB, which stays resident in the
-// 50 MB L2; one piece batch of 2.5-8 K queries per launch) that is ~22
-// dependent L2 round trips per search and a grid of only 10-32 blocks, so
-// the launch is bound by load latency and launch overhead, not by bytes or
-// operations.
+// What bounds them on the H100: at the main path's shapes (UQ1's orders
+// and lineitem indexes, 0.9-3.6 M keys, which stay resident in the 50 MB
+// L2; one piece batch of 2.5-8 K queries per launch) a search reads a few
+// dozen keys per query, so bytes are far below the card's rate.  What costs
+// time is the chain of dependent loads (each an L2 round trip, unless L1
+// holds the key), the instructions spent per level on all lanes, and the
+// launch.
 //
-// What the design does about it: one thread per query, no shared memory and
-// no synchronisation, so a launch costs one grid of independent searches.
-// The TPU's gather-free design (a dense compare sweep over every 128th key,
+// What the design does about it.  sorted_probe gives each query a group of
+// kGroup lanes (several queries share a warp).  Each level cuts the range
+// still unknown into kGroup + 1 parts: lane j loads the j-th splitter, all
+// loads issued together, and __ballot_sync + __popc count the splitters
+// below q, for < and for <=, which narrows each range to one part.  So a
+// search takes ceil(log_{G+1}(n + 1)) dependent loads where a binary search
+// takes ceil(log2(n + 1)): with G = 16, 5 instead of 20 at UQ1's orders
+// index and 6 instead of 22 at its lineitem index.  lo and hi share their
+// loads while their ranges coincide (until a splitter equals q); after that
+// each lane loads once for each.  The last level, with at most kGroup keys
+// left, reads them all and is exact.  The top levels read the same keys for
+// every query and hit L1 (__ldg).  A level costs one 32-bit division by a
+// constant and a multiply per lane: splitters placed with a 64-bit division
+// each made the kernel bound by instructions, not loads.  kGroup was chosen
+// by timing 8, 16 and 32 on the main-path inputs
+// (scripts/kernel_variants.py): 16 is the fastest at the orders index,
+// which the main path probes (8 is at the lineitem index, which only
+// ops.searchsorted probes); 32 moves twice the L2 sectors per level.  The
+// TPU's gather-free design (a dense compare sweep over every 128th key,
 // then a gathered 128-key refine block) is not carried over: Hopper gathers
-// freely, and a branchless search (the loop trip count depends on n only, so
-// a warp never diverges) reads ~2 log2(n) keys per query instead of sweeping
-// all fences.  The two searches are independent, so their loads interleave.
-// Staging the top levels of the search tree in shared memory is left for a
-// later change.
+// freely.
 //
-// The pick multiplies with __fmul_rn and the library is built with
-// -fmad=false, so the float32 product is rounded exactly as the reference's
-// and the pick equals it bit for bit.
+// probe_pick still runs one thread per query with two branch-free binary
+// searches (count_below, ~22 dependent loads at 3.6 M keys); it adopts the
+// group search, and count_below goes, in a later change.  The pick
+// multiplies with __fmul_rn and the library is built with -fmad=false, so
+// the float32 product is rounded exactly as the reference's and the pick
+// equals it bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,16 +70,61 @@ __device__ __forceinline__ int count_below(const K* __restrict__ keys, int n,
   return base + ((Less ? (k < q) : (k <= q)) ? 1 : 0);
 }
 
+constexpr int kThreads = 256;
+constexpr int kGroup = 16;      // lanes per query of sorted_probe: 8, 16 or 32
+constexpr unsigned kFull = 0xffffffffu;
+
+// The answer a of one search lies in [base, base + len]; the keys at
+// [base, base + len) are not read yet.  A level cuts them into parts of
+// step - 1 keys with step = ceil((len + 1) / (kGroup + 1)): lane j reads the
+// splitter base + (j + 1) * step - 1 where it lies in the range, and if c
+// splitters are below q the answer lies in the part after the c-th, which
+// holds at most floor(len / (kGroup + 1)) keys.  Once len <= kGroup, step is
+// 1: the lanes read every key left and the answer is exact.  A range of
+// len 0 reads nothing and stays.
+struct Range {
+  unsigned base, len;
+
+  __device__ __forceinline__ unsigned step() const {
+    return (len + kGroup + 1) / (kGroup + 1);
+  }
+  __device__ __forceinline__ void narrow(unsigned step, int c) {
+    base += c * step;
+    len = min(len - c * step, step - 1);
+  }
+};
+
 template <typename K>
-__global__ void sorted_probe_kernel(const K* __restrict__ keys, int n,
-                                    const K* __restrict__ queries, int nq,
-                                    int* __restrict__ lo,
-                                    int* __restrict__ hi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const K q = queries[i];
-  lo[i] = count_below<K, true>(keys, n, q);
-  hi[i] = count_below<K, false>(keys, n, q);
+__global__ void __launch_bounds__(kThreads)
+sorted_probe_kernel(const K* __restrict__ keys, int n,
+                    const K* __restrict__ queries, int nq,
+                    int* __restrict__ lo, int* __restrict__ hi) {
+  static_assert(32 % kGroup == 0, "a group is a whole part of a warp");
+  const int lane = threadIdx.x & 31;
+  const unsigned j = lane % kGroup;
+  const unsigned group =
+      (kGroup == 32 ? kFull : (1u << kGroup) - 1) << (lane - j);
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kGroup;
+  const bool live = i < nq;
+  const K q = live ? queries[i] : K(0);
+  Range below{0u, live ? static_cast<unsigned>(n) : 0u};   // lo = #keys < q
+  Range upto = below;                                      // hi = #keys <= q
+  while (__any_sync(kFull, below.len > 0 || upto.len > 0)) {
+    const bool shared = below.base == upto.base && below.len == upto.len;
+    const unsigned sl = below.step(), sh = upto.step();
+    const unsigned el = (j + 1) * sl, eh = (j + 1) * sh;
+    const bool rl = el <= below.len, rh = eh <= upto.len;
+    const K kl = rl ? __ldg(keys + below.base + el - 1) : K(0);
+    K kh = kl;
+    if (!shared && rh) kh = __ldg(keys + upto.base + eh - 1);
+    below.narrow(sl, __popc(__ballot_sync(kFull, rl && kl < q) & group));
+    upto.narrow(sh, __popc(__ballot_sync(kFull, rh && kh <= q) & group));
+  }
+  if (live && j == 0) {
+    lo[i] = static_cast<int>(below.base);
+    hi[i] = static_cast<int>(upto.base);
+  }
 }
 
 template <typename K>
@@ -86,8 +146,6 @@ __global__ void probe_pick_kernel(const K* __restrict__ keys, int n,
   deg[i] = d;
 }
 
-constexpr int kThreads = 256;
-
 inline int blocks_for(long long nq) {
   return static_cast<int>((nq + kThreads - 1) / kThreads);
 }
@@ -102,7 +160,7 @@ template <typename K>
 int launch_sorted_probe(const void* keys, long long n, const void* queries,
                         long long nq, void* lo, void* hi, void* stream) {
   if (nq <= 0) return launched_or_error(0);
-  sorted_probe_kernel<K><<<blocks_for(nq), kThreads, 0,
+  sorted_probe_kernel<K><<<blocks_for(nq * kGroup), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const K*>(keys), static_cast<int>(n),
       static_cast<const K*>(queries), static_cast<int>(nq),
@@ -129,6 +187,9 @@ int launch_probe_pick(const void* keys, long long n, const void* queries,
 // given stream, does not synchronise, and returns the number of kernels it
 // launched (1; 0 when there is no query), or minus the CUDA error.
 extern "C" {
+
+// lanes per query of sorted_probe
+int repro_sorted_probe_group() { return kGroup; }
 
 int repro_sorted_probe_i32(const void* keys, long long n, const void* queries,
                            long long nq, void* lo, void* hi, void* stream) {

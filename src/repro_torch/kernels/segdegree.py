@@ -6,16 +6,17 @@ of the longest.  Replaces the Pallas kernel
 ``repro/kernels/segdegree.py::segdegree_kernel``.
 
 A wrapper given a CPU tensor runs the plain PyTorch version (run-start
-arithmetic); given a CUDA tensor it launches the two-pass kernel of
-``csrc/segdegree.cu`` on the current stream or raises.  Either way the two
+arithmetic); given a CUDA tensor it launches the one-pass kernel of
+``csrc/segdegree.cu`` on the current stream (one wave of CTAs; the last CTA
+to finish merges the others' summaries) or raises.  Either way the two
 numbers come back to the host in one sync, as the reference's
-``np.asarray`` does.  Each call adds the kernels it launched (the tile
-pass and one per merge level: 3 at 60 M keys) to
+``np.asarray`` does.  Each non-empty call adds one kernel to
 ``build.launch_counts["segdegree"]``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -55,13 +56,33 @@ def segdegree(keys: torch.Tensor) -> Tuple[int, int]:
     n = keys.shape[0]
     if n == 0:
         return 0, 0
-    nbytes = load().repro_segdegree_scratch_bytes(n)
+    wave = kernel_wave(keys.element_size(), dev)
+    nbytes = load().repro_segdegree_scratch_bytes(wave)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     # int64 on the device until the fetch: counts past 2^31 - 1 stay exact
     out = torch.empty(2, dtype=torch.int64, device=dev)
     launch("segdegree",
            "repro_segdegree_" + ("i32" if keys.dtype == torch.int32 else "i64"),
-           keys.data_ptr(), n, scratch.data_ptr(), nbytes, out.data_ptr(),
-           stream(dev))
+           keys.data_ptr(), n, wave, scratch.data_ptr(), nbytes,
+           out.data_ptr(), stream(dev))
     distinct, longest = out.tolist()
     return distinct, longest
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_wave(key_bytes: int, dev: torch.device) -> int:
+    """CTAs of one wave of the kernel for ``key_bytes``-wide keys on ``dev``
+    (a call of n keys launches at most this many, each of an equal range)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        wave = load().repro_segdegree_wave(key_bytes, sms)
+    if wave <= 0:
+        raise RuntimeError(f"segdegree: occupancy query failed with CUDA "
+                           f"error {-wave}")
+    return wave
+
+
+def cta_keys(n: int, key_bytes: int, dev: torch.device) -> int:
+    """Keys of each CTA's range in a call of ``n`` keys: CTA c reads
+    ``[c * k, (c + 1) * k)``."""
+    return load().repro_segdegree_cta_keys(n, kernel_wave(key_bytes, dev))

@@ -18,7 +18,8 @@ from repro_torch.kernels import attention, probe, segdegree
 from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CASES,
                                        SEGDEGREE_CARD_CASES, SEGDEGREE_CASES,
                                        attention_case, attention_tol,
-                                       key_dtypes, probe_case, segdegree_keys)
+                                       key_dtypes, probe_case,
+                                       segdegree_card_case)
 
 
 def _need_card():
@@ -48,28 +49,28 @@ def test_kernels_on_card_equal_plain(name):
 
 
 def _segdegree_kernels(n):
-    """Kernels one call launches: the tile pass, then one merge level per
-    2,048-fold reduction of the tile summaries (none for n = 0)."""
-    if n == 0:
-        return 0
-    launched, m = 1, -(-n // 2048)
-    while m > 1:
-        launched, m = launched + 1, -(-m // 2048)
-    return launched
+    """Kernels one call launches: one (none for n = 0)."""
+    return 1 if n else 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SEGDEGREE_CASES + SEGDEGREE_CARD_CASES)
 def test_segdegree_on_card_equals_plain(name):
     _need_card()
-    keys = segdegree_keys(name)
-    for dt in key_dtypes(keys):
-        k = torch.as_tensor(keys, device="cuda").to(dt)
+    dev = torch.device("cuda", 0)
+    for dt in (torch.int64, torch.int32):
+        # the boundary cases follow the CTA ranges of a call of this width
+        width = 4 if dt == torch.int32 else 8
+        base, off = segdegree_card_case(
+            name, lambda n: segdegree.cta_keys(n, width, dev))
+        if dt not in key_dtypes(base):
+            continue
+        k = torch.as_tensor(base, device="cuda").to(dt)[off:]
         before = probe.launch_counts["segdegree"]
         got = segdegree.segdegree(k)
         assert got == segdegree.segdegree_plain(k), (name, dt)
         assert (probe.launch_counts["segdegree"]
-                == before + _segdegree_kernels(keys.size))
+                == before + _segdegree_kernels(k.numel()))
 
 
 @pytest.mark.cuda

@@ -24,9 +24,10 @@ from repro.kernels.segdegree import segdegree_pallas
 from repro_torch.kernels import ops
 
 from repro_torch.kernels.cases import (ATTENTION_SHAPES, PALLAS_PROBE_CASES,
-                                       PROBE_CASES, SEGDEGREE_CASES,
-                                       attention_case, attention_tol,
-                                       key_dtypes, probe_case, segdegree_keys)
+                                       PROBE_CASES, SEGDEGREE_CARD_CASES,
+                                       SEGDEGREE_CASES, attention_case,
+                                       attention_tol, key_dtypes, probe_case,
+                                       segdegree_card_case, segdegree_keys)
 
 
 @pytest.mark.parametrize("name", SEGDEGREE_CASES)
@@ -38,6 +39,18 @@ def test_segdegree_equals_reference(name):
         got = ops.segdegree(torch.as_tensor(keys).to(dt), device="cpu")
         assert got == want, dt
         assert all(type(x) is int for x in got)
+
+
+@pytest.mark.parametrize("name", SEGDEGREE_CARD_CASES)
+def test_segdegree_card_cases_equal_reference(name):
+    """The card's edge cases (views, short columns, CTA-range boundaries)
+    through the plain version on the CPU; ``cta_keys`` stands in for the
+    card's CTA ranges (the card's tests use the kernel's own)."""
+    base, off = segdegree_card_case(name, lambda n: 3072)
+    want = ref.segdegree_ref(base[off:])
+    for dt in key_dtypes(base):
+        col = torch.as_tensor(base).to(dt)[off:]
+        assert ops.segdegree(col, device="cpu") == want, dt
 
 
 def _pallas_attention(q, k, v, lens, cap, win):
