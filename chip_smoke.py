@@ -12,11 +12,15 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    ``src/repro_torch/kernels/csrc`` built with nvcc (time and ptxas report);
 2. kernels — ``sorted_probe`` and ``probe_pick`` against their plain PyTorch
    versions on the card, at the main path's shapes (UQ1's indexes with one
-   piece batch of queries) and on edge sweeps, exact equality; device
-   times of kernel, plain version and ``torch.searchsorted``, and the bound;
-   for ``sorted_probe`` also its bound shares and ratios to the library at
-   the orders and lineitem indexes, its group width G and levels (dependent
-   loads), launches per call and the ptxas report of both key widths;
+   piece batch of queries) and on edge sweeps with the shared pick
+   uniforms (``cases.probe_uniforms``), exact equality; device times of
+   kernel, plain version and ``torch.searchsorted``, and the bound; for
+   both their group width G and levels (dependent loads) against a binary
+   search's, bound shares, launches per call and the ptxas report of both
+   key widths; for ``sorted_probe`` also its ratios to the library at the
+   orders and lineitem indexes; for ``probe_pick`` the time of the port's
+   two-step route (``sorted_probe`` + ``pick_from_range``) on the same
+   inputs and, from phase 6, its time at UQ4's residual index;
 3. draw parity — every UQ1 ``TorchTreeJoin`` draws identically through the
    kernels and through the plain versions on the same uniforms;
 4. main path — ``SetUnionSampler(backend="torch", device="cuda")`` on UQ1
@@ -45,8 +49,12 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    report of both key widths; for decode attention its CTAs (one wave) and
    the ptxas report of the bf16, D 256, G 2 instantiation that these
    widths launch;
-6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``);
-7. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
+6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``;
+   before its serve, ``probe_pick`` is timed at the residual index);
+7. branching tree — UQ3 at the UQ1 scale: every join, the branching
+   ``UQ3_JA`` among them, draws identically through the kernels and the
+   plain versions (every UQ3 node is uniform, so each runs ``probe_pick``);
+8. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
    exact union (chi-square), on the card.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -81,6 +89,9 @@ ATTN_BATCH, ATTN_SEQ = 8, 8192
 # l_orderkey at TPC-H SF 10: 15 M orders of 1-7 lines each, ~60 M lines
 SF10_LINES = 60_000_000
 I64_MAX = np.iinfo(np.int64).max
+# the full run's workload scales (UQ1 100 ≈ TPC-H SF 1); the variants
+# script probes the indexes built at these scales
+UQ1_SCALE, UQ4_SCALE = 100.0, 10.0
 
 
 def _card_line() -> str:
@@ -189,7 +200,7 @@ def _bound(keys, queries, pick: bool):
 
 
 def _search_levels(n: int, group: int) -> int:
-    """Dependent loads of ``sorted_probe``'s group search over n keys: each
+    """Dependent loads of the probes' group search over n keys: each
     level leaves at most floor(len / (group + 1)) keys unread, and the last
     reads the at most ``group`` keys left."""
     levels = 0
@@ -209,13 +220,14 @@ def _launches_per_call(kernel: str, fn) -> int:
     return build.launch_counts[kernel] - before
 
 
-def _ptxas_pair(kernel: str) -> dict:
+def _ptxas_pair(kernel: str, group=None, log=None) -> dict:
     """The ptxas report of the int32 and int64 instantiations of a kernel
-    templated on its key type."""
+    templated on its key type (and on its group width, for the probes)."""
     from repro_torch.kernels import build
-    log = build.build()["log"]
-    return {"int32": _ptxas_stats(log, kernel, "kernelIiE"),
-            "int64": _ptxas_stats(log, kernel, "kernelIlE")}
+    log = build.build()["log"] if log is None else log
+    g = "" if group is None else f"Li{group}E"
+    return {"int32": _ptxas_stats(log, kernel, f"kernelIi{g}E"),
+            "int64": _ptxas_stats(log, kernel, f"kernelIl{g}E")}
 
 
 def _check_equal(a, b, what: str) -> None:
@@ -233,28 +245,28 @@ def _max_abs_err(a, b) -> int:
 
 
 def phase_edge_sweeps() -> int:
-    """Kernel vs plain on the shared edge cases and one large case; returns
-    the number of cases."""
+    """Kernel vs plain on the shared edge cases and the large card case,
+    with the shared pick uniforms (0, 1⁻ and products that land on an
+    integer); returns the number of cases."""
     import torch
     from repro_torch.kernels import probe
-    from repro_torch.kernels.cases import PROBE_CASES, key_dtypes, probe_case
-    rng = np.random.default_rng(0)
-    cases = [probe_case(name) for name in PROBE_CASES] + [
-        (np.sort(rng.integers(0, 1000, 1 << 20)),
-         rng.integers(-10, 1010, 100_000))]                         # large
-    for keys, qs in cases:
+    from repro_torch.kernels.cases import (PROBE_CARD_CASES, PROBE_CASES,
+                                           key_dtypes, probe_case,
+                                           probe_uniforms)
+    names = PROBE_CASES + PROBE_CARD_CASES
+    for name in names:
+        keys, qs = probe_case(name)
+        u = torch.as_tensor(probe_uniforms(name, qs.shape[0]), device="cuda")
         for dt in key_dtypes(keys, qs):
-            k = torch.as_tensor(np.asarray(keys, np.int64), device="cuda").to(dt)
-            q = torch.as_tensor(np.asarray(qs, np.int64), device="cuda").to(dt)
-            u = torch.rand(q.shape[0], device="cuda")
-            u[:1] = float(np.nextafter(np.float32(1), np.float32(0)))
+            k = torch.as_tensor(keys, device="cuda").to(dt)
+            q = torch.as_tensor(qs, device="cuda").to(dt)
             _check_equal(probe.sorted_probe(k, q), probe.sorted_probe_plain(k, q),
-                         f"sorted_probe edge case n={k.numel()} {dt}")
+                         f"sorted_probe edge case {name} {dt}")
             _check_equal(probe.probe_pick(k, q, u),
                          probe.probe_pick_plain(k, q, u),
-                         f"probe_pick edge case n={k.numel()} {dt}")
+                         f"probe_pick edge case {name} {dt}")
     torch.cuda.synchronize()
-    return len(cases)
+    return len(names)
 
 
 def _node_queries(tree, node: int, batch: int):
@@ -271,7 +283,9 @@ def _node_queries(tree, node: int, batch: int):
 def phase_kernels(sampler) -> list:
     """Main-path shapes: one piece batch of queries against UQ1_J0's orders
     index (the largest ``sorted_probe`` sees) and lineitem index (what
-    ``probe_pick`` sees; ``sorted_probe`` is timed there too)."""
+    ``probe_pick`` sees; ``sorted_probe`` is timed there too).
+    ``probe_pick`` is also timed against the port's two-step route on the
+    same inputs: ``sorted_probe`` and then ``pick_from_range``."""
     import torch
     from repro_torch.kernels import build, probe
     tree = sampler.backend.trees[sampler.order[0]]
@@ -295,6 +309,10 @@ def phase_kernels(sampler) -> list:
             kern = lambda: probe.probe_pick(keys, q, u)           # noqa: E731
             plain = lambda: probe.probe_pick_plain(keys, q, u)    # noqa: E731
             lib = None
+
+            def composite():
+                lo, hi = probe.sorted_probe(keys, q)
+                return probe.pick_from_range(lo, hi - lo, u), hi - lo
         a, b = kern(), plain()
         torch.cuda.synchronize()
         _check_equal(a, b, f"{name} at main-path shape")
@@ -338,8 +356,21 @@ def phase_kernels(sampler) -> list:
                 "lineitem_vs_library": (row["lineitem_ms"]
                                         / row["lineitem_library_ms"]),
                 "launches_per_call": _launches_per_call("sorted_probe", kern),
-                "ptxas": _ptxas_pair("sorted_probe_kernel"),
+                "ptxas": _ptxas_pair("sorted_probe_kernel", g),
             })
+        else:
+            _check_equal(composite(), b, "sorted_probe + pick_from_range at "
+                         "main-path shape")
+            g = build.load().repro_probe_pick_group()
+            row.update({
+                "G": g, "levels": _search_levels(keys.numel(), g),
+                "binary_search_levels": math.ceil(math.log2(keys.numel() + 1)),
+                "bound_share": bound_ms / row["ms"],
+                "composite_ms": _device_ms(composite),
+                "launches_per_call": _launches_per_call("probe_pick", kern),
+                "ptxas": _ptxas_pair("probe_pick_kernel", g),
+            })
+            row["vs_composite"] = row["ms"] / row["composite_ms"]
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = bound_ms * 1e3
         out.append(row)
@@ -347,6 +378,8 @@ def phase_kernels(sampler) -> list:
 
 
 def phase_draw_parity(sampler, batch: int) -> int:
+    """Every tree of ``sampler`` draws the same through the kernels and the
+    plain versions on two seeds of uniforms; returns the draws compared."""
     import torch
     n = 0
     for name in sampler.order:
@@ -363,6 +396,63 @@ def phase_draw_parity(sampler, batch: int) -> int:
             n += 1
     torch.cuda.synchronize()
     return n
+
+
+def _residual_inputs(sampler):
+    """The residual index of a cyclic sampler's tree (UQ4's ``pref``) and
+    one piece batch of real queries for it: ``(node name, keys, queries)``."""
+    tree = next(t for t in sampler.backend.trees.values() if t.has_residual)
+    i = next(i for i, c in enumerate(tree.node_cfgs) if c.kind == "residual")
+    q = _node_queries(tree, i, sampler.engine.piece_batches[
+        sampler.order.index(tree.name)])
+    return f"{tree.name}/{tree.node_cfgs[i].alias}", tree.sorted_keys[i], q
+
+
+def phase_residual_probe(sampler) -> dict:
+    """``probe_pick`` at the residual index of a cyclic sampler with one
+    piece batch of real queries: exact against the plain version; device
+    times of both and the bound."""
+    import torch
+    from repro_torch.kernels import build, probe
+    node, keys, q = _residual_inputs(sampler)
+    u = torch.rand(q.shape[0], device="cuda")
+    kern = lambda: probe.probe_pick(keys, q, u)                   # noqa: E731
+    plain = lambda: probe.probe_pick_plain(keys, q, u)            # noqa: E731
+    _check_equal(kern(), plain(), "probe_pick at the residual index")
+    g = build.load().repro_probe_pick_group()
+    return {"residual_ms": _device_ms(kern),
+            "residual_plain_ms": _device_ms(plain),
+            "residual_bound_ms": _bound(keys, q, pick=True)[0],
+            "residual_n_keys": keys.numel(), "residual_n_queries": q.numel(),
+            "residual_levels": _search_levels(keys.numel(), g),
+            "residual_node": node}
+
+
+def phase_branching_tree(scale: float, round_batch: int) -> dict:
+    """UQ3 built on the card at ``scale``: every join's draws, the branching
+    ``UQ3_JA`` among them, equal through the kernels and the plain versions;
+    the kernels these draws launch (``probe_pick`` only: every UQ3 node is
+    uniform)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_sampler
+    sampler, wl, _, build_s = build_sampler("UQ3", scale, seed=0,
+                                            device="cuda",
+                                            round_batch=round_batch)
+    parents = [n.parent for n in wl.joins[0].nodes]
+    if max(parents.count(n.alias) for n in wl.joins[0].nodes) < 2:
+        raise AssertionError("[uq3] UQ3_JA has no branching node")
+    build.reset_launch_counts()
+    n = phase_draw_parity(sampler, max(sampler.engine.piece_batches))
+    launches = dict(build.launch_counts)
+    if launches["probe_pick"] <= 0:
+        raise AssertionError("[uq3] the draws launched no probe_pick")
+    torch.cuda.synchronize()
+    return {"draws": n, "launches": launches, "host_build_s": build_s,
+            "scale": scale,
+            "rows_per_node": [[nd.relation.nrows for nd in j.nodes]
+                              for j in wl.joins],
+            "piece_batches": list(sampler.engine.piece_batches)}
 
 
 def _rows_in_relation(rel, rows) -> np.ndarray:
@@ -853,9 +943,9 @@ def phase_small_reference(seed: int = 0) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scale", type=float, default=100.0,
+    ap.add_argument("--scale", type=float, default=UQ1_SCALE,
                     help="UQ1 scale (100 ≈ TPC-H SF 1)")
-    ap.add_argument("--uq4-scale", type=float, default=10.0)
+    ap.add_argument("--uq4-scale", type=float, default=UQ4_SCALE)
     ap.add_argument("--round-batch", type=int, default=8192)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--samples", type=int, default=4096)
@@ -927,19 +1017,27 @@ def main(argv=None) -> int:
 
     # 6. residual path
     # UQ4 has no weighted node: its tree and residual hops all run probe_pick
+    pick_row = next(r for r in rows if r["name"] == "probe_pick")
     res_out = run_path("residual", "UQ4", args.uq4_scale, 4, args.samples,
-                       args.round_batch, ("probe_pick",))
+                       args.round_batch, ("probe_pick",),
+                       before_serve=lambda s: pick_row.update(
+                           phase_residual_probe(s)))
     res_out.pop("sampler")
     print("[residual] " + json.dumps(res_out), flush=True)
 
-    # 7. small-input reference on the card
+    # 7. a branching tree
+    uq3_out = phase_branching_tree(args.scale, args.round_batch)
+    print("[uq3] draws through the kernels == plain versions (exact): "
+          + json.dumps(uq3_out), flush=True)
+
+    # 8. small-input reference on the card
     p = phase_small_reference()
     print(f"[reference] UQ1 scale 0.05 uniform over the exact union on the "
           f"card: chi-square p={p:.4f}", flush=True)
 
-    if args.scale != 100.0 or args.uq4_scale != 10.0:
-        print(f"[cut] UQ1 scale {args.scale} (full: 100), UQ4 scale "
-              f"{args.uq4_scale} (full: 10)", flush=True)
+    if args.scale != UQ1_SCALE or args.uq4_scale != UQ4_SCALE:
+        print(f"[cut] UQ1 scale {args.scale} (full: {UQ1_SCALE:g}), UQ4 "
+              f"scale {args.uq4_scale} (full: {UQ4_SCALE:g})", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

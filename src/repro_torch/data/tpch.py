@@ -24,7 +24,7 @@ tuples — are duplicate-free (the paper's §3 no-duplicates assumption).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -129,3 +129,19 @@ def make_variants(rel: Relation, n_variants: int, overlap: float,
         keep[core:] = rng.random(n - core) < keep_rest
         out.append(rel.filter(keep, name=f"{rel.name}@v{v}"))
     return out
+
+
+def vertical_split(rel: Relation, groups: List[List[str]],
+                   key_attrs: List[str]) -> List[Relation]:
+    """Lossless vertical split: every part keeps the key attributes."""
+    return [rel.project(list(dict.fromkeys(key_attrs + g)),
+                        name=f"{rel.name}|{'_'.join(g) or i}")
+            for i, g in enumerate(groups)]
+
+
+def horizontal_split(rel: Relation, fraction: float, seed: int = 0,
+                     name: Optional[str] = None) -> Relation:
+    """The rows a seeded coin keeps with probability ``fraction``."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random(rel.nrows) < fraction
+    return rel.filter(keep, name=name or f"{rel.name}~h")

@@ -1,16 +1,18 @@
-"""The evaluation workloads of this slice: UQ1 (§9) and the cyclic UQ4.
+"""The evaluation workloads of the port: UQ1, UQ3 (§9) and the cyclic UQ4.
 
 Port copy of ``repro.data.workloads`` (same seeds, same arrays):
 
 * **UQ1** — five chain joins, five relations each
   (nation ⋈ supplier ⋈ customer ⋈ orders ⋈ lineitem), one variant database
   per join sharing ``overlap`` of the base rows.
+* **UQ3** — one acyclic (branching-tree) join + two chain joins derived
+  from customer/orders via vertical splits — different relation schemas,
+  same output schema: exercises the §5.2 splitting method.
 * **UQ4** — union of a cyclic join (supplier ⋈ partsupp ⋈ part + a
   cycle-closing preferred-supplier relation as the §8.2 residual) with an
   equivalent denormalised chain.
 
-UQ2 (§8.3 predicates) and UQ3 (vertical/horizontal splits) wait for later
-slices.
+UQ2 (§8.3 predicates) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 from ..core.index import Catalog
 from ..core.joins import JoinNode, JoinSpec, chain_join, full_join
 from ..core.relation import Relation
-from .tpch import TpchLite, generate, make_variants
+from .tpch import TpchLite, generate, make_variants, vertical_split
 
 
 @dataclasses.dataclass
@@ -58,6 +60,41 @@ def uq1(scale: float = 0.02, overlap: float = 0.2, seed: int = 0,
             [("nk",), ("nk",), ("ck",), ("ok",)],
         ))
     return Workload("UQ1", joins, cat, db)
+
+
+def uq3(scale: float = 0.02, overlap: float = 0.2, seed: int = 0) -> Workload:
+    db = generate(scale, seed=seed)
+    cat = Catalog()
+    rng_seed = seed + 101
+    # output schema: (ck, nk, cbal, ok, odate)
+    cust = db["customer"].project(["ck", "nk", "cbal"])
+    ords = db["orders"].project(["ok", "ck", "odate"])
+    cust_v = make_variants(cust, 3, overlap, seed=rng_seed)
+    ords_v = make_variants(ords, 3, overlap, seed=rng_seed + 1)
+
+    # J3a: branching tree over vertical splits of customer + orders
+    # (cust_a has two children, cust_b and ord_a)
+    cust_a, cust_b = vertical_split(cust_v[0], [["nk"], ["cbal"]], ["ck"])
+    ord_a, ord_b = vertical_split(ords_v[0], [[], ["odate"]], ["ok", "ck"])
+    ord_a = ord_a.project(["ok", "ck"], name="ord_a0")
+    ord_b = ord_b.project(["ok", "odate"], name="ord_b0")
+    j3a = JoinSpec("UQ3_JA", [
+        JoinNode("cust_a", cust_a, None, ()),
+        JoinNode("cust_b", cust_b, "cust_a", ("ck",)),
+        JoinNode("ord_a", ord_a, "cust_a", ("ck",)),
+        JoinNode("ord_b", ord_b, "ord_a", ("ok",)),
+    ])
+
+    # J3b: chain over un-split customer + vertically split orders
+    ord_a1 = ords_v[1].project(["ok", "ck"], name="ord_a1")
+    ord_b1 = ords_v[1].project(["ok", "odate"], name="ord_b1")
+    j3b = chain_join("UQ3_JB", [cust_v[1].rename({}, name="cust1"),
+                                ord_a1, ord_b1], [("ck",), ("ok",)])
+
+    # J3c: 2-relation chain over denormalised orders
+    j3c = chain_join("UQ3_JC", [cust_v[2].rename({}, name="cust2"),
+                                ords_v[2].rename({}, name="ord2")], [("ck",)])
+    return Workload("UQ3", [j3a, j3b, j3c], cat, db)
 
 
 def uq4(scale: float = 0.02, seed: int = 0) -> Workload:
@@ -95,4 +132,4 @@ def uq4(scale: float = 0.02, seed: int = 0) -> Workload:
     return Workload("UQ4", [j_cyc, j_chain], cat, db)
 
 
-WORKLOADS = {"UQ1": uq1, "UQ4": uq4}
+WORKLOADS = {"UQ1": uq1, "UQ3": uq3, "UQ4": uq4}

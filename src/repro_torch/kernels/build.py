@@ -43,6 +43,7 @@ _P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 _ATTN = (_P, _P, _P, _P, _N, _N, _N, _N, _N, _F, _F, _N, _I, _P, _N, _P, _P)
 _SIGNATURES = {
     "repro_sorted_probe_group": (_I, ()),
+    "repro_probe_pick_group": (_I, ()),
     "repro_sorted_probe_i32": (_I, (_P, _N, _P, _N, _P, _P, _P)),
     "repro_sorted_probe_i64": (_I, (_P, _N, _P, _N, _P, _P, _P)),
     "repro_probe_pick_i32": (_I, (_P, _N, _P, _P, _N, _P, _P, _P)),

@@ -1,10 +1,11 @@
 """Edge cases of the port's kernels, one list for every check that uses them.
 
-The CPU tests feed these seeded numpy inputs to the reference package and to
-the port's plain versions; the card's tests and ``chip_smoke.py`` feed the
-same inputs to the CUDA kernels and the plain versions.  The attention
-tolerances live here too, so every comparison holds the same limit.
-Nothing here touches a device.
+The CPU tests feed these seeded numpy inputs (and, for the probes, the pick
+uniforms of :func:`probe_uniforms`) to the reference package and to the
+port's plain versions; the card's tests, ``chip_smoke.py`` and
+``scripts/kernel_variants.py`` feed the same inputs to the CUDA kernels and
+the plain versions.  The attention tolerances live here too, so every
+comparison holds the same limit.  Nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ PROBE_CASES = ["runs_straddle_blocks", "below_and_above", "dom_2_45",
                "single_key", "empty_keys", "runs_straddle_splitters",
                "n_1088", "n_1089", "n_1090", "extremes_i32",
                "extremes_i64"] + [f"n_{n}" for n in range(1, 41)]
+# held against the plain versions on the card only (the CPU tests hold the
+# cases above against the reference): 2^20 keys of about 1,000 distinct
+# values, so each query's degree is about 1,000
+PROBE_CARD_CASES = ["large_2_20"]
 # the cases the reference's Pallas kernels take (at least two key blocks;
 # not extremes_i64: walk_hop_pallas pads the keys with INT64_MAX and counts
 # the pads in the degree of a query equal to INT64_MAX)
@@ -60,7 +65,7 @@ def _small_keys(rng, n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
-    rng = np.random.default_rng(PROBE_CASES.index(name))
+    rng = np.random.default_rng((PROBE_CASES + PROBE_CARD_CASES).index(name))
     if name.startswith("n_"):
         keys, qs = _small_keys(rng, int(name[2:]))
     elif name == "runs_straddle_splitters":
@@ -83,6 +88,9 @@ def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
     elif name == "dom_2_45":
         keys = np.sort(rng.integers(-2**45, 2**45, 700))
         qs = np.concatenate([rng.integers(-2**46, 2**46, 200), keys[::7]])
+    elif name == "large_2_20":
+        keys = np.sort(rng.integers(0, 1000, 1 << 20))
+        qs = rng.integers(-10, 1010, 100_000)
     elif name == "single_key":
         keys = np.array([7], np.int64)
         qs = np.array([6, 7, 8], np.int64)
@@ -90,6 +98,75 @@ def probe_case(name: str) -> Tuple[np.ndarray, np.ndarray]:
         keys = np.zeros(0, np.int64)
         qs = np.array([-1, 0, 5], np.int64)
     return keys.astype(np.int64), qs.astype(np.int64)
+
+
+# the largest float32 below 1: u·d must stay below d after the pick's floor
+ONE_MINUS = np.nextafter(np.float32(1), np.float32(0))
+
+
+def probe_degrees(keys: np.ndarray, qs: np.ndarray) -> np.ndarray:
+    """#keys == q per query (d = hi - lo)."""
+    return (np.searchsorted(keys, qs, side="right")
+            - np.searchsorted(keys, qs, side="left"))
+
+
+def least_u_reaching(k: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """The least float32 u whose float32 product u·d is at least k, per
+    element (0 where k is 0)."""
+    k = np.asarray(k, np.int64)
+    d32 = np.asarray(d, np.float32)
+    u = (k / np.maximum(d32, 1)).astype(np.float32)
+    while True:                                     # up to the first u ...
+        low = u * d32 < k
+        if not low.any():
+            break
+        u[low] = np.nextafter(u[low], np.float32(1))
+    while True:                                     # ... then to the least
+        prev = np.nextafter(u, np.float32(0))
+        ok = (k > 0) & (prev * d32 >= k)
+        if not ok.any():
+            return u
+        u[ok] = prev[ok]
+
+
+def landing_uniforms(rng: np.random.Generator, d: np.ndarray) -> np.ndarray:
+    """Per degree d, a float32 u whose float32 product u·d is an integer k
+    in [0, d), with u the least such for its k.  Of 16 random tries of k it
+    keeps, where it finds one, a k whose exact product u·d lies below k (so
+    floor of the unrounded product gives k - 1), else a k > 0; u is 0
+    (k = 0) where no try lands, d < 2 among them."""
+    d = np.asarray(d, np.int64)
+    d32 = d.astype(np.float32)
+    out = np.zeros(d.shape[0], np.float32)
+    best = np.zeros(d.shape[0], np.int64)
+    for _ in range(16):
+        k = np.floor(rng.random(d.shape[0]) * d).astype(np.int64)
+        u = least_u_reaching(k, d)
+        lands = (u * d32 == k) & (k > 0)
+        score = lands * (1 + (u.astype(np.float64) * d < k))
+        take = score > best
+        out[take] = u[take]
+        best[take] = score[take]
+    return out
+
+
+def probe_uniforms(name: str, nq: int) -> np.ndarray:
+    """Seeded float32 pick uniforms in [0, 1) for the ``nq`` queries of
+    probe case ``name``.  Of every five queries one gets 0, one 1⁻
+    (:data:`ONE_MINUS`), and one a u whose float32 product with the query's
+    degree lands on an integer (:func:`landing_uniforms`); the other two
+    are random."""
+    keys, qs = probe_case(name)
+    if qs.shape[0] != nq:
+        raise ValueError(f"probe case {name} has {qs.shape[0]} queries, "
+                         f"not {nq}")
+    rng = np.random.default_rng(
+        1000 + (PROBE_CASES + PROBE_CARD_CASES).index(name))
+    u = rng.random(nq, dtype=np.float32)
+    u[0::5] = 0
+    u[1::5] = ONE_MINUS
+    u[2::5] = landing_uniforms(rng, probe_degrees(keys, qs[2::5]))
+    return u
 
 
 # ---------------------------------------------------------------------------

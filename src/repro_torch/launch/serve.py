@@ -84,7 +84,7 @@ def serve(sampler, requests: int, samples: int, batch: int,
 def main(argv: Optional[list] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("samples",), default="samples")
-    ap.add_argument("--workload", default="UQ1", choices=("UQ1", "UQ4"))
+    ap.add_argument("--workload", default="UQ1", choices=("UQ1", "UQ3", "UQ4"))
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=8)

@@ -1,8 +1,9 @@
 """The port's numpy host layer equals the reference exactly.
 
-Same seed → the same TPC-H-lite arrays, EW node weights and root prefix,
-§5 histogram overlap bounds, Olken bounds, cover order and selection
-probabilities; and ``workload_from_numpy`` round-trips a reference workload.
+Same seed → the same TPC-H-lite arrays, vertical and horizontal splits, EW
+node weights and root prefix, §5 histogram overlap bounds, Olken bounds,
+cover order and selection probabilities; and ``workload_from_numpy``
+round-trips a reference workload.
 All comparisons are exact (the port runs the same numpy arithmetic).
 """
 
@@ -20,16 +21,19 @@ from repro.core.joins import chain_join as ref_chain_join
 from repro.core.index import Catalog as RefCatalog
 from repro.core.overlap import HistogramOverlap as RefHist
 from repro.core.size_estimation import olken_bound as ref_olken
+from repro.data import tpch as ref_tpch
 from repro.data import workloads as ref_wl
 
 from repro_torch.core import framework as pt_fw
 from repro_torch.core.join_sampler import JoinSampler
 from repro_torch.core.overlap import HistogramOverlap
 from repro_torch.core.size_estimation import olken_bound
+from repro_torch.data import tpch as pt_tpch
 from repro_torch.data import workloads as pt_wl
 
 WORKLOADS = {
     "uq1": lambda m: m.uq1(scale=0.05, overlap=0.4, seed=1),
+    "uq3": lambda m: m.uq3(seed=3),
     "uq4": lambda m: m.uq4(scale=0.05, seed=2),
 }
 
@@ -61,6 +65,23 @@ def test_workload_arrays_equal(pair):
             for a in rn.relation.attrs:
                 assert np.array_equal(rn.relation.columns[a],
                                       pn.relation.columns[a]), (rn.alias, a)
+
+
+def test_split_helpers_equal():
+    rel = ref_tpch.generate(0.05, seed=4)["orders"]
+    groups, key = [["ck"], [], ["odate", "ck"]], ["ok"]
+    pairs = list(zip(ref_tpch.vertical_split(rel, groups, key),
+                     pt_tpch.vertical_split(rel, groups, key)))
+    for frac, seed, name in ((0.3, 5, None), (0.8, 6, "kept")):
+        pairs.append((ref_tpch.horizontal_split(rel, frac, seed, name),
+                      pt_tpch.horizontal_split(rel, frac, seed, name)))
+    assert [r.attrs for r, _ in pairs[:3]] == [
+        ["ok", "ck"], ["ok"], ["ok", "odate", "ck"]]
+    assert 0 < pairs[3][0].nrows < rel.nrows
+    for r, p in pairs:
+        assert (r.name, r.attrs, r.nrows) == (p.name, p.attrs, p.nrows)
+        for a in r.attrs:
+            assert np.array_equal(r.columns[a], p.columns[a]), (r.name, a)
 
 
 def test_ew_weights_and_root_prefix_equal(pair):

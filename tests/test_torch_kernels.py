@@ -18,8 +18,10 @@ from repro.kernels.walk import walk_hop_pallas
 
 from repro_torch.kernels import probe
 
-from repro_torch.kernels.cases import (PALLAS_PROBE_CASES, PROBE_CASES,
-                                       key_dtypes, probe_case)
+from repro_torch.kernels.cases import (ONE_MINUS, PALLAS_PROBE_CASES,
+                                       PROBE_CARD_CASES, PROBE_CASES,
+                                       key_dtypes, probe_case, probe_degrees,
+                                       probe_uniforms)
 
 
 @pytest.mark.parametrize("name", PROBE_CASES)
@@ -37,25 +39,60 @@ def test_sorted_probe_plain_equals_reference(name):
         assert np.array_equal(hi.numpy(), hi_r), dt
 
 
+def _check_uniforms(name, keys, qs, u):
+    """0 and 1⁻ at every fifth query; at every fifth a u whose float32
+    product with the query's degree is an integer k in [0, d), with k > 0
+    wherever d > 1; seeded, so each check draws the same values."""
+    assert u.dtype == np.float32 and u.shape == qs.shape
+    assert np.array_equal(u, probe_uniforms(name, qs.shape[0]))
+    assert ((u >= 0) & (u < 1)).all()
+    assert (u[0::5] == 0).all() and (u[1::5] == ONE_MINUS).all()
+    d = probe_degrees(keys, qs[2::5])
+    k = u[2::5] * np.maximum(d, 1).astype(np.float32)     # float32 product
+    assert (k == np.floor(k)).all() and (k < np.maximum(d, 1)).all()
+    assert (k[d > 1] > 0).all()
+    if name in ("runs_straddle_splitters", "large_2_20"):
+        # the exact product lies below k: floor of it would give k - 1
+        assert (u[2::5].astype(np.float64) * d < k).any()
+    with pytest.raises(ValueError):
+        probe_uniforms(name, qs.shape[0] + 1)
+
+
 @pytest.mark.parametrize("name", PROBE_CASES)
 def test_probe_pick_plain_equals_reference(name):
     keys, qs = probe_case(name)
-    rng = np.random.default_rng(len(name))
-    u = rng.random(qs.shape[0]).astype(np.float32)
-    u[:2] = np.float32(np.nextafter(np.float32(1), np.float32(0)))  # u → 1⁻
+    u = probe_uniforms(name, qs.shape[0])
+    _check_uniforms(name, keys, qs, u)
     pos_r, d_r = ref.walk_hop_ref(keys, qs, u)
+    lo_r, _ = ref.searchsorted_ref(keys, qs)
+    # hop_refine_pick_kernel's float32 pick on the reference's range;
+    # walk_hop_ref multiplies u by an int64 degree, which numpy does in
+    # float64, so it gives k - 1 where the float32 product rounds up to k:
+    # only at the uniforms that land on an integer
+    pick = lo_r + np.minimum(
+        np.floor(u * np.maximum(d_r, 1).astype(np.float32)).astype(np.int64),
+        np.maximum(d_r - 1, 0))
+    apart = np.flatnonzero(pick != pos_r)
+    assert (apart % 5 == 2).all() and (pick[apart] == pos_r[apart] + 1).all()
     for dt in key_dtypes(keys, qs):
         pos, d = probe.probe_pick(torch.as_tensor(keys).to(dt),
                                   torch.as_tensor(qs).to(dt),
                                   torch.as_tensor(u))
         assert np.array_equal(d.numpy(), d_r)
         # unclipped contract: a dead query (d == 0) gets pos = lo
-        assert np.array_equal(pos.numpy(), pos_r)
+        assert np.array_equal(pos.numpy(), pick)
     if name in PALLAS_PROBE_CASES:
         pos_p, d_p = walk_hop_pallas(keys, qs, u, interpret=True)
         assert np.array_equal(d_p, d_r)
         # walk_hop_pallas clips to n - 1 for its host caller
-        assert np.array_equal(pos_p, np.minimum(pos_r, keys.shape[0] - 1))
+        assert np.array_equal(pos_p, np.minimum(pick, keys.shape[0] - 1))
+
+
+def test_card_probe_uniforms_hold_edge_values():
+    """The card's probe cases draw uniforms with the same edge values."""
+    for name in PROBE_CARD_CASES:
+        keys, qs = probe_case(name)
+        _check_uniforms(name, keys, qs, probe_uniforms(name, qs.shape[0]))
 
 
 def test_pick_float32_rounding_matches_reference():

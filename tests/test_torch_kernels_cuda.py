@@ -15,11 +15,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import attention, probe, segdegree
-from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CASES,
-                                       SEGDEGREE_CARD_CASES, SEGDEGREE_CASES,
-                                       attention_case, attention_tol,
-                                       key_dtypes, probe_case,
-                                       segdegree_card_case)
+from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CARD_CASES,
+                                       PROBE_CASES, SEGDEGREE_CARD_CASES,
+                                       SEGDEGREE_CASES, attention_case,
+                                       attention_tol, key_dtypes, probe_case,
+                                       probe_uniforms, segdegree_card_case)
 
 
 def _need_card():
@@ -28,11 +28,11 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", PROBE_CASES)
+@pytest.mark.parametrize("name", PROBE_CASES + PROBE_CARD_CASES)
 def test_kernels_on_card_equal_plain(name):
     _need_card()
     keys, qs = probe_case(name)
-    u = torch.rand(qs.shape[0], device="cuda")
+    u = torch.as_tensor(probe_uniforms(name, qs.shape[0]), device="cuda")
     for dt in key_dtypes(keys, qs):
         k = torch.as_tensor(keys, device="cuda").to(dt)
         q = torch.as_tensor(qs, device="cuda").to(dt)

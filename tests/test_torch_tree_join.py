@@ -2,9 +2,10 @@
 
 The uniforms come from the reference's key schedule (``split(key,
 n_nodes+1[+1])`` + ``uniform``), so rows, ``accept`` and ``walk_ok`` must
-match element for element: UQ1 (weighted and uniform nodes), UQ4 (a §8.2
-residual node), a cyclic spec whose residual degrees vary (``Π d/M`` with
-M > 1), and a conftest chain also against the Pallas interpret path.  A
+match element for element: UQ1 (weighted and uniform nodes), UQ3 (a
+branching tree: ``cust_a`` has two children), UQ4 (a §8.2 residual node), a
+cyclic spec whose residual degrees vary (``Π d/M`` with M > 1), and a
+conftest chain also against the Pallas interpret path.  A
 chi-square pins the port's own draws to the exact join.
 """
 
@@ -21,7 +22,7 @@ from repro.core.backends.jax_backend import DeviceTreeJoin
 from repro.core.index import Catalog
 from repro.core.joins import JoinNode, JoinSpec, chain_join, full_join_matrix
 from repro.core.relation import Relation
-from repro.data.workloads import uq1, uq4
+from repro.data.workloads import uq1, uq3, uq4
 
 from repro_torch.core.backends.torch_backend import TorchTreeJoin
 
@@ -61,11 +62,16 @@ def _assert_draws_equal(ref_tree, pt_tree, keys, batch):
         assert np.array_equal(np.asarray(r_ok), ok.numpy())
 
 
-@pytest.mark.parametrize("wl_name", ["uq1", "uq4", "cyclic"])
+@pytest.mark.parametrize("wl_name", ["uq1", "uq3", "uq4", "cyclic"])
 def test_draws_equal_reference(wl_name):
     if wl_name == "uq1":
         wl = uq1(scale=0.05, overlap=0.4, seed=0)
         joins, cat_ref = wl.joins[:2], wl.cat
+    elif wl_name == "uq3":
+        wl = uq3()
+        joins, cat_ref = wl.joins, wl.cat
+        parents = [n.parent for n in joins[0].nodes]
+        assert parents.count("cust_a") == 2          # a branching node
     elif wl_name == "uq4":
         wl = uq4(scale=0.05, seed=0)
         joins, cat_ref = wl.joins, wl.cat
@@ -80,6 +86,9 @@ def test_draws_equal_reference(wl_name):
         kinds = {(c.kind, c.uniform) for c in pt_tree.node_cfgs}
         if wl_name == "uq1":
             assert ("tree", True) in kinds and ("tree", False) in kinds
+        if wl_name == "uq3":
+            # every edge of a vertical split is 1:1: all nodes run probe_pick
+            assert kinds == {("tree", True)}
         if wl_name == "cyclic":
             assert pt_tree.node_cfgs[-1].max_degree > 1
         _assert_draws_equal(ref_tree, pt_tree, keys, 1024)

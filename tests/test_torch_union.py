@@ -22,7 +22,7 @@ from test_torch_support import JaxReplay, sample_multiset, to_port
 from repro.core.framework import estimate_union, warmup
 from repro.core.overlap import exact_union_size
 from repro.core.union_sampler import SetUnionSampler as RefSetUnionSampler
-from repro.data.workloads import uq1, uq4
+from repro.data.workloads import uq1, uq3, uq4
 
 from repro_torch.core.union_sampler import SetUnionSampler
 
@@ -39,6 +39,11 @@ def _setup(name):
         wl = uq1(scale=0.05, overlap=0.4, seed=0)
         return wl, estimate_union(warmup(wl.cat, wl.joins,
                                          method="histogram").oracle)
+    if name == "uq3":
+        # a branching tree (UQ3_JA) and two chains over shared customers
+        wl = uq3()
+        return wl, estimate_union(warmup(wl.cat, wl.joins,
+                                         method="exact").oracle)
     wl = uq4(scale=0.05, seed=0)
     # chain first: both cover pieces are non-empty and the cyclic piece is
     # probed against the chain
@@ -46,7 +51,7 @@ def _setup(name):
                               order=["UQ4_CHAIN", "UQ4_CYC"])
 
 
-@pytest.mark.parametrize("name", ["uq1", "uq4"])
+@pytest.mark.parametrize("name", ["uq1", "uq3", "uq4"])
 def test_union_equals_reference_under_replayed_uniforms(name):
     wl, est = _setup(name)
     ref = RefSetUnionSampler(wl.cat, wl.joins, est.cover, seed=3,
