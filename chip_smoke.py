@@ -54,8 +54,32 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
 7. branching tree — UQ3 at the UQ1 scale: every join, the branching
    ``UQ3_JA`` among them, draws identically through the kernels and the
    plain versions (every UQ3 node is uniform, so each runs ``probe_pick``);
-8. small-input reference — UQ1 at scale 0.05 is sampled uniformly over its
-   exact union (chi-square), on the card.
+8. §8.3 predicates — UQ2 at the UQ1 scale, served: ``[uq2]`` in pushdown
+   mode (the three flavours' masked indexes share one device tensor per
+   base node; every node is weighted, so ``sorted_probe`` only),
+   ``[uq2-rejection]`` in rejection mode (in-round predicate masks,
+   ``pred_rejects`` > 0, both probes), each over the exact warm-up's cover
+   (computed once, in pushdown mode: both modes have the same union) and
+   with kernel draws held equal to plain draws on all three flavours and
+   every served row in its home piece's filtered join only;
+   ``[uq2-adaptive]``: the pushdown state under ``plan="adaptive"``,
+   served and checked the same way; ``[uq2-cli]``: the serve CLI as a user
+   runs it, ``--workload UQ2 --plan adaptive`` (histogram warm-up, whose
+   cover gives JP and JS no mass at this scale, as the reference's does);
+   ``[record]``: UQ2 pushdown with ``membership="record"``, three
+   ``sample(4096)`` calls (revisions, debited rows, rounds, rows in their
+   home piece; a row may be credited to a later piece that holds it, since
+   the lazy record learns a tuple's first piece only when it draws it);
+9. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
+   rejection and record mode) at scale 0.05 are sampled uniformly over
+   their exact unions (chi-square), on the card, and every row is in its
+   home piece and in no earlier one (record mode included).
+
+Between 4 and 5, ``[adaptive]`` serves the same UQ1 state under
+``plan="adaptive"`` as ``[main]`` serves it under the static plan, with its
+``[profile]`` split and ``[main]``'s numbers beside its own.  The
+``kernels`` rows of ``sorted_probe`` and ``probe_pick`` give their launches
+on each served path (``launches_by_path``).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -119,23 +143,35 @@ def _call_ms(fn, reps: int = 200, warm: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
+# profiler sessions that came back with no device activity and were run
+# again (printed on the [profiler] line)
+EMPTY_TRACES = [0]
+# profiler sessions tried before a call is said to have no device activity
+PROFILER_ATTEMPTS = 3
+
+
 def _device_events(fn, reps: int):
     """The device activity (kernels, copies) of ``reps`` calls of ``fn``,
-    from torch.profiler: a list of (name, microseconds)."""
+    from torch.profiler: a list of (name, microseconds).  A session that
+    records no device activity at all is run again, at most
+    ``PROFILER_ATTEMPTS`` times in all, and counted in ``EMPTY_TRACES``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(PROFILER_ATTEMPTS):
         torch.cuda.synchronize()
-    ev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    if not ev:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return ev
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if ev:
+            return ev
+        EMPTY_TRACES[0] += 1
+    raise AssertionError(f"torch.profiler recorded no device activity in "
+                         f"{PROFILER_ATTEMPTS} sessions")
 
 
 def _device_ms(fn, reps: int = 100, warm: int = 10) -> float:
@@ -476,14 +512,30 @@ def _rows_in_relation(rel, rows) -> np.ndarray:
     return table[i] == query
 
 
-def check_membership(sampler, rows, home) -> None:
-    """Each sample lies in its home piece and in no earlier cover piece,
-    by the definition of a join: a row is in a join iff its projection onto
-    every base relation of the join is a row of that relation."""
+def _passes(preds, rows) -> np.ndarray:
+    """Whether each row passes every §8.3 predicate, by the predicate's own
+    numpy comparison."""
+    keep = np.ones(len(next(iter(rows.values()))), bool)
+    for p in preds:
+        keep &= p.mask(rows)
+    return keep
+
+
+def _membership_matrix(sampler, rows) -> np.ndarray:
+    """(rows, pieces) membership by the definition of a join: a row is in a
+    join iff its projection onto every base relation of the join is a row
+    of that relation (a pushdown's relations are the filtered ones) and it
+    passes the join's rejection predicates."""
     by_name = {j.name: j for j in sampler.joins}
-    mm = np.stack([np.logical_and.reduce([_rows_in_relation(n.relation, rows)
-                                          for n in by_name[name].nodes])
-                   for name in sampler.order], axis=1)
+    return np.stack([np.logical_and.reduce(
+        [_rows_in_relation(n.relation, rows) for n in by_name[name].nodes]
+        + [_passes(by_name[name].reject_preds, rows)])
+        for name in sampler.order], axis=1)
+
+
+def check_membership(sampler, rows, home) -> None:
+    """Each sample lies in its home piece and in no earlier cover piece."""
+    mm = _membership_matrix(sampler, rows)
     if not mm.any(axis=1).all():
         raise AssertionError("a served row is in no join of the union")
     first = np.argmax(mm, axis=1)
@@ -492,19 +544,30 @@ def check_membership(sampler, rows, home) -> None:
                              "credited to the wrong cover piece")
 
 
+def check_record_membership(sampler, rows, home) -> int:
+    """Record mode: each sample lies in its home piece.  The lazy record
+    learns a tuple's first piece only when that piece draws it (Alg 1
+    l.8-12), so a row may still be credited to a later piece that holds it;
+    returns how many are."""
+    mm = _membership_matrix(sampler, rows)
+    if not mm[np.arange(home.size), home].all():
+        raise AssertionError("a record-mode row is not in its home piece")
+    return int((np.argmax(mm, axis=1) < home).sum())
+
+
 def run_path(label: str, workload: str, scale: float, requests: int,
-             samples: int, round_batch: int, required, before_serve=None
-             ) -> dict:
-    """Build, then serve through SampleService with the launch counts set
+             samples: int, round_batch: int, required, before_serve=None,
+             built=None) -> dict:
+    """Build (or take ``built`` = (sampler, workload, estimates, build
+    seconds)), then serve through SampleService with the launch counts set
     to 0 just before and read just after (each kernel in ``required`` must
-    have launched); check what came out.  Returns the summary
-    (``sampler`` included)."""
+    have launched); check what came out.  Returns the summary (``sampler``,
+    ``wl`` and ``est`` included)."""
     import torch
     from repro_torch.kernels import probe
     from repro_torch.launch.serve import build_sampler, serve
-    sampler, wl, est, build_s = build_sampler(workload, scale, seed=0,
-                                              device="cuda",
-                                              round_batch=round_batch)
+    sampler, wl, est, build_s = built or build_sampler(
+        workload, scale, seed=0, device="cuda", round_batch=round_batch)
     torch.cuda.synchronize()
     rows_per_node = [[n.relation.nrows for n in j.nodes] for j in wl.joins]
     print(f"[{label}] {workload} scale={scale}: host build {build_s:.1f}s, "
@@ -523,6 +586,8 @@ def run_path(label: str, workload: str, scale: float, requests: int,
     out["host_build_s"] = build_s
     out["scale"] = scale
     out["workload"] = workload
+    out["plan"] = sampler.plan
+    out["piece_batches"] = list(sampler.engine.piece_batches)
     for k in required:
         if out["launches"][k] <= 0:
             raise AssertionError(f"[{label}] kernel {k} was not launched on "
@@ -556,8 +621,75 @@ def run_path(label: str, workload: str, scale: float, requests: int,
     if out["dropped_slots"] == 0 and not (np.abs(f - p) <= tol).all():
         raise AssertionError(f"[{label}] home frequencies {f} differ from "
                              f"selection probabilities {p} (tol {tol})")
-    out["sampler"] = sampler
+    out["sampler"], out["wl"], out["est"] = sampler, wl, est
     return out
+
+
+def phase_shared_indexes(sampler) -> dict:
+    """UQ2's pushdown flavours share one device tensor per base-node index,
+    permutation and payload column (the catalog cache, keyed by relation
+    identity): the same ``data_ptr()`` in every flavour."""
+    trees = [sampler.backend.trees[n] for n in sampler.order]
+    t0 = trees[0]
+    if not all(t.masked for t in trees):
+        raise AssertionError("[uq2] a pushdown flavour was built without "
+                             "its masks")
+    shared = 0
+    for t in trees[1:]:
+        pairs = list(zip(t.root_cols.values(), t0.root_cols.values()))
+        for i in range(len(t0.node_cfgs)):
+            pairs += [(t.sorted_keys[i], t0.sorted_keys[i]),
+                      (t.perm[i], t0.perm[i])]
+            pairs += [(t.cols[i][a], c) for a, c in t0.cols[i].items()]
+        for x, y in pairs:
+            if x.data_ptr() != y.data_ptr():
+                raise AssertionError("[uq2] pushdown flavours hold separate "
+                                     "copies of a base-node tensor")
+        shared += len(pairs)
+    return {"flavours": len(trees),
+            "shared_tensors_per_flavour": shared // (len(trees) - 1),
+            "base_nodes": len(t0.node_cfgs) + 1,
+            "weighted_nodes": sum(not c.uniform for c in t0.node_cfgs)}
+
+
+def phase_record(wl, est, round_batch: int, samples: int) -> dict:
+    """UQ2 pushdown with ``membership="record"``: three sample(samples)
+    calls (the first sizes the record to 4 × samples), with the launch
+    counts set to 0 just before and read just after; every returned row lies
+    in its home piece."""
+    import torch
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.kernels import probe
+    calls = 3
+    s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0, device="cuda",
+                        round_batch=round_batch, membership="record")
+    torch.cuda.synchronize()
+    probe.reset_launch_counts()
+    rounds, syncs, outs = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        outs.append(s.sample(samples))
+        rounds.append(s.engine.last_rounds)
+        syncs.append(s.engine.last_host_syncs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(probe.launch_counts)
+    later = 0
+    for ss in outs:
+        if len(ss) != samples:
+            raise AssertionError(f"[record] sample size {len(ss)}")
+        later += check_record_membership(s, ss.rows, ss.home)
+    if launches["sorted_probe"] <= 0:
+        raise AssertionError("[record] the path launched no sorted_probe")
+    st = s.stats
+    return {"calls": calls, "samples": samples, "seconds": dt,
+            "samples_per_s": calls * samples / dt, "rounds_per_call": rounds,
+            "host_syncs_per_call": syncs, "revisions": st.revisions,
+            "backtrack_removed": st.backtrack_removed,
+            "cover_rejects": st.cover_rejects, "psi": st.psi(),
+            "record_capacity": s.engine.R, "launches": launches,
+            "rows_in_home_piece": True,
+            "rows_credited_to_a_later_piece": later}
 
 
 def phase_profile(sampler, round_batch: int, wall_s_per_call: float) -> dict:
@@ -912,19 +1044,26 @@ def phase_ops(sampler, seed: int):
     return [seg_row, att_row], summary
 
 
-def phase_small_reference(seed: int = 0) -> float:
-    """UQ1 at scale 0.05: the card's samples are uniform over the exact
-    union (chi-square p-value returned; must exceed 1e-3)."""
+def phase_small_reference(workload: str = "UQ1", seed: int = 0,
+                          **kw) -> float:
+    """UQ1 at scale 0.05 (overlap 0.4) or UQ2 at scale 0.05: the card's
+    samples are uniform over the exact union (chi-square p-value returned;
+    must exceed 1e-3).  ``kw`` goes to ``SetUnionSampler`` (``plan``,
+    ``membership``) or, as ``pred_mode``, to UQ2."""
     from scipy import stats as sps
     from repro_torch.core.framework import estimate_union, warmup
     from repro_torch.core.overlap import exact_union_size
     from repro_torch.core.union_sampler import SetUnionSampler
-    from repro_torch.data.workloads import uq1
-    wl = uq1(scale=0.05, overlap=0.4, seed=seed)
+    from repro_torch.data.workloads import uq1, uq2
+    if workload == "UQ1":
+        wl = uq1(scale=0.05, overlap=0.4, seed=seed)
+    else:
+        wl = uq2(scale=0.05, seed=seed,
+                 pred_mode=kw.pop("pred_mode", "pushdown"))
     est = estimate_union(warmup(wl.cat, wl.joins, method="exact").oracle)
     U = exact_union_size(wl.cat, wl.joins)
     s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=7, device="cuda",
-                        round_batch=1024)
+                        round_batch=1024, **kw)
     N = 200 * U
     ss = s.sample(N)
     m = ss.matrix()
@@ -935,9 +1074,12 @@ def phase_small_reference(seed: int = 0) -> float:
     exp = N / U
     chi2 = float(((counts - exp) ** 2 / exp).sum()) + (U - uni.shape[0]) * exp
     p = float(1 - sps.chi2.cdf(chi2, df=U - 1))
+    # strict homes in record mode too: at N = 200·U every tuple's first
+    # piece has drawn it before the call settles
     check_membership(s, ss.rows, ss.home)
     if p <= 1e-3:
-        raise AssertionError(f"UQ1 small-input chi-square failed (p={p})")
+        raise AssertionError(f"{workload} {kw} small-input chi-square failed "
+                             f"(p={p})")
     return p
 
 
@@ -994,50 +1136,202 @@ def main(argv=None) -> int:
     main_out = run_path("main", "UQ1", args.scale, args.requests, args.samples,
                         args.round_batch, ("sorted_probe", "probe_pick"),
                         before_serve=kernels_and_parity)
-    main_sampler = main_out.pop("sampler")
+    main_sampler, wl1, est1 = (main_out.pop(k) for k in ("sampler", "wl",
+                                                         "est"))
     prof = phase_profile(main_sampler, args.round_batch,
                          args.round_batch / main_out["engine_samples_per_s"])
     for r in rows:
         r["launches"] = main_out["launches"][r["name"]]
         r["path"] = "UQ1 main path"
+        r["launches_by_path"] = {"UQ1 static": r["launches"]}
     print("[main] " + json.dumps(main_out), flush=True)
     print("[profile] " + json.dumps(prof), flush=True)
 
-    # 5. the kernel entry point; segdegree and decode attention are reached
+    def path_launches(label, out):
+        for r in rows:
+            if r["name"] in ("sorted_probe", "probe_pick"):
+                r["launches_by_path"][label] = out["launches"][r["name"]]
+
+    # 5. the adaptive round planner on the same UQ1 state, served the same
+    from repro_torch.core.union_sampler import SetUnionSampler
+    t0 = time.perf_counter()
+    ad_sampler = SetUnionSampler(wl1.cat, wl1.joins, est1.cover, seed=0,
+                                 device="cuda", round_batch=args.round_batch,
+                                 plan="adaptive")
+    ad_out = run_path("adaptive", "UQ1", args.scale, args.requests,
+                      args.samples, args.round_batch,
+                      ("sorted_probe", "probe_pick"),
+                      built=(ad_sampler, wl1, est1,
+                             time.perf_counter() - t0))
+    for k in ("sampler", "wl", "est"):
+        ad_out.pop(k)
+    ad_prof = phase_profile(ad_sampler, args.round_batch,
+                            args.round_batch / ad_out["engine_samples_per_s"])
+    ad_out["slot_width"] = ad_sampler.engine._slot_width
+    ad_out["static"] = {k: main_out[k] for k in (
+        "piece_batches", "engine_samples_per_s", "samples_per_s", "psi",
+        "rounds_per_sample_call", "host_syncs_per_sample_call")}
+    ad_out["static"]["device_ms_per_call"] = prof["device_ms_per_call"]
+    ad_out["static"]["slot_width"] = args.round_batch
+    ad_out["profile"] = ad_prof
+
+    def engine_rate(sampler, calls=4):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            sampler.sample(args.round_batch)
+        torch.cuda.synchronize()
+        return calls * args.round_batch / (time.perf_counter() - t0)
+    # both plans in turns on the same state (static, adaptive, adaptive,
+    # static): the host-bound rate drifts between phases of one run
+    ad_out["paired_engine_samples_per_s"] = [
+        [plan, engine_rate(smp)] for plan, smp in (
+            ("static", main_sampler), ("adaptive", ad_sampler),
+            ("adaptive", ad_sampler), ("static", main_sampler))]
+    del ad_sampler
+    path_launches("UQ1 adaptive", ad_out)
+    print("[adaptive] " + json.dumps(ad_out), flush=True)
+
+    # 6. the kernel entry point; segdegree and decode attention are reached
     # only through it (the UQ1 path launches neither)
     sweeps = phase_ops_sweeps()
     print(f"[ops] edge sweeps, kernel vs plain: {json.dumps(sweeps)}",
           flush=True)
     ops_rows, ops_out = phase_ops(main_sampler, seed=0)
-    del main_sampler
+    del main_sampler, wl1, est1
     for r in ops_rows:
         r["main_path_launches"] = main_out["launches"][r["name"]]
     rows.extend(ops_rows)
     print("[ops] " + json.dumps(ops_out), flush=True)
 
-    # 6. residual path
+    # 7. residual path
     # UQ4 has no weighted node: its tree and residual hops all run probe_pick
     pick_row = next(r for r in rows if r["name"] == "probe_pick")
     res_out = run_path("residual", "UQ4", args.uq4_scale, 4, args.samples,
                        args.round_batch, ("probe_pick",),
                        before_serve=lambda s: pick_row.update(
                            phase_residual_probe(s)))
-    res_out.pop("sampler")
+    for k in ("sampler", "wl", "est"):
+        res_out.pop(k)
+    path_launches("UQ4 residual", res_out)
     print("[residual] " + json.dumps(res_out), flush=True)
 
-    # 7. a branching tree
+    # 8. a branching tree
     uq3_out = phase_branching_tree(args.scale, args.round_batch)
     print("[uq3] draws through the kernels == plain versions (exact): "
           + json.dumps(uq3_out), flush=True)
 
-    # 8. small-input reference on the card
-    p = phase_small_reference()
-    print(f"[reference] UQ1 scale 0.05 uniform over the exact union on the "
-          f"card: chi-square p={p:.4f}", flush=True)
+    # 9. §8.3 predicates: UQ2 pushdown (masked base indexes shared by the
+    # three flavours; every node weighted, so sorted_probe only) ...
+    uq2_pre: dict = {}
+
+    def uq2_checks(sampler):
+        uq2_pre["draws_kernel_eq_plain"] = phase_draw_parity(
+            sampler, max(sampler.engine.piece_batches))
+        if sampler.joins[0].pushdown_base is not None:
+            uq2_pre["shared_indexes"] = phase_shared_indexes(sampler)
+
+    def uq2_exact(pred_mode, est=None):
+        """UQ2 over the exact warm-up's cover.  The three flavours' histogram
+        bounds are equal, and at this scale that cover gives JP and JS no
+        mass (the reference's does the same); the exact cover gives JN and
+        JP theirs (JS lies inside JN ∪ JP).  Rejection mode takes pushdown's
+        ``est``: the same union over the same data, so the same exact piece
+        sizes, without a second exact warm-up over the unfiltered joins."""
+        from repro_torch.core.framework import estimate_union, warmup
+        from repro_torch.data.workloads import uq2
+        t0 = time.perf_counter()
+        wl = uq2(scale=args.scale, seed=0, pred_mode=pred_mode)
+        uq2_pre["warmup"] = "exact" if est is None else "exact, pushdown's"
+        if est is None:
+            est = estimate_union(warmup(wl.cat, wl.joins,
+                                        method="exact").oracle)
+        smp = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0,
+                              device="cuda", round_batch=args.round_batch)
+        uq2_pre["piece_sizes"] = [est.cover.piece_sizes[n]
+                                  for n in est.cover.order]
+        return smp, wl, est, time.perf_counter() - t0
+
+    uq2_out = run_path("uq2", "UQ2", args.scale, 8, args.samples,
+                       args.round_batch, ("sorted_probe",),
+                       before_serve=uq2_checks, built=uq2_exact("pushdown"))
+    uq2_out.update(uq2_pre)
+    uq2_static, wl2, est2 = (uq2_out.pop(k) for k in ("sampler", "wl",
+                                                       "est"))
+    path_launches("UQ2 pushdown", uq2_out)
+    print("[uq2] " + json.dumps(uq2_out), flush=True)
+
+    # ... the same state under plan="adaptive", served and checked like
+    # [uq2], then engine calls in turns with the static plan ...
+    t0 = time.perf_counter()
+    uq2_ad = SetUnionSampler(wl2.cat, wl2.joins, est2.cover, seed=0,
+                             device="cuda", round_batch=args.round_batch,
+                             plan="adaptive")
+    uq2_ad_out = run_path("uq2-adaptive", "UQ2", args.scale, 8, args.samples,
+                          args.round_batch, ("sorted_probe",),
+                          built=(uq2_ad, wl2, est2,
+                                 time.perf_counter() - t0))
+    for k in ("sampler", "wl", "est"):
+        uq2_ad_out.pop(k)
+    uq2_ad_out["slot_width"] = uq2_ad.engine._slot_width
+    uq2_ad_out["paired_engine_samples_per_s"] = [
+        [plan, engine_rate(smp)] for plan, smp in (
+            ("static", uq2_static), ("adaptive", uq2_ad),
+            ("adaptive", uq2_ad), ("static", uq2_static))]
+    del uq2_ad, uq2_static
+    path_launches("UQ2 adaptive", uq2_ad_out)
+    print("[uq2-adaptive] " + json.dumps(uq2_ad_out), flush=True)
+
+    # ... the serve CLI as a user runs it (histogram warm-up, adaptive; its
+    # cover serves JN only, see uq2_exact) ...
+    from repro_torch.kernels import probe
+    from repro_torch.launch.serve import main as serve_main
+    probe.reset_launch_counts()
+    cli_out = serve_main(["--mode", "samples", "--workload", "UQ2",
+                          "--plan", "adaptive", "--scale", str(args.scale),
+                          "--requests", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_out["launches"] = dict(probe.launch_counts)
+    if cli_out["launches"]["sorted_probe"] <= 0:
+        raise AssertionError("[uq2-cli] the CLI launched no sorted_probe")
+    path_launches("UQ2 CLI adaptive", cli_out)
+    print("[uq2-cli] " + json.dumps(cli_out), flush=True)
+
+    # ... UQ2 rejection (nation and supplier weighted, partsupp and part
+    # uniform: both probes; in-round predicate masks) ...
+    uq2_pre.clear()
+    rej_out = run_path("uq2-rejection", "UQ2", args.scale, 8, args.samples,
+                       args.round_batch, ("sorted_probe", "probe_pick"),
+                       before_serve=uq2_checks,
+                       built=uq2_exact("rejection", est2))
+    rej_out.update(uq2_pre)
+    for k in ("sampler", "wl", "est"):
+        rej_out.pop(k)
+    if rej_out["pred_rejects"] <= 0:
+        raise AssertionError("[uq2-rejection] no predicate rejections")
+    path_launches("UQ2 rejection", rej_out)
+    print("[uq2-rejection] " + json.dumps(rej_out), flush=True)
+
+    # ... and record-mode membership over UQ2 pushdown
+    rec_out = phase_record(wl2, est2, args.round_batch, 4096)
+    del wl2, est2
+    path_launches("UQ2 record", rec_out)
+    print("[record] " + json.dumps(rec_out), flush=True)
+
+    # 10. small-input reference on the card
+    ps = {"UQ1 static": phase_small_reference(),
+          "UQ1 adaptive": phase_small_reference(plan="adaptive"),
+          "UQ2 pushdown": phase_small_reference("UQ2"),
+          "UQ2 rejection": phase_small_reference("UQ2",
+                                                 pred_mode="rejection"),
+          "UQ2 record": phase_small_reference("UQ2", membership="record")}
+    print("[reference] UQ1 and UQ2 at scale 0.05 uniform over the exact "
+          "union on the card: chi-square p " + json.dumps(ps), flush=True)
 
     if args.scale != UQ1_SCALE or args.uq4_scale != UQ4_SCALE:
         print(f"[cut] UQ1 scale {args.scale} (full: {UQ1_SCALE:g}), UQ4 "
               f"scale {args.uq4_scale} (full: {UQ4_SCALE:g})", flush=True)
+    print(f"[profiler] sessions with no device activity, run again: "
+          f"{EMPTY_TRACES[0]}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Torch backend — the Algorithm-1 union engine resident on the card.
 
-Port of ``repro.core.backends.jax_backend`` (the probe-membership, static
-plan engine).  Three layers, bottom-up:
+Port of ``repro.core.backends.jax_backend``: probe or record membership,
+the static or adaptive round plan, §8.3 predicates.  Three layers,
+bottom-up:
 
 * :class:`TorchTreeJoin` — one join prepared for batched Exact-Weight draws
   (chain ⊂ tree ⊂ §8.2 skeleton+residual).  Each non-root node keeps its
@@ -11,17 +12,21 @@ plan engine).  Three layers, bottom-up:
   pick, then per node one range probe through the CUDA kernels of
   :mod:`repro_torch.kernels.probe` (``probe_pick`` for uniform and residual
   nodes, ``sorted_probe`` + an inverse-CDF pick for weighted nodes) and the
-  payload gathers.  Residual nodes accumulate the ``Π d/M`` acceptance.
+  payload gathers.  Residual nodes accumulate the ``Π d/M`` acceptance.  A
+  §8.3 pushdown becomes validity masks over base indexes that the
+  catalog's device cache shares across flavours.
 * :class:`TorchJoinMembership` — batched "is tuple in join J" probes as
   sorted 32-bit row fingerprints (held as int64 so sorting and
   ``torch.searchsorted`` see the uint32 order) with a 32-bit secondary and a
-  ``kmax``-wide duplicate window.
+  ``kmax``-wide duplicate window, ANDed with a join's rejection predicates.
 * :class:`TorchUnionSampler` — Algorithm-1 rounds driven from Python with
   every carry on the device: per-piece shortfall, FIFO ring-buffer surplus
   banks, dead-piece flags, the 6-wide stats vector and the per-piece
   counters.  Each round ends in one host sync (the ``total < n`` test), the
   cadence of the reference's ``fused_rounds="host"`` loop, so the exit round
   is exact; ``sample(n)`` adds one device→host fetch of the result.
+  :class:`TorchRecordUnionSampler` keeps the lazy ``orig_join`` record as a
+  sorted-fingerprint multiset instead, with the same cadence.
 
 Random numbers come from a **uniform source**: :class:`PhiloxUniforms`
 (a ``torch.Generator`` on the device) in production; tests pass an object
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,9 +51,11 @@ import torch
 from ...device import resolve_device
 from ...kernels.probe import (probe_pick, probe_pick_plain, sorted_probe,
                               sorted_probe_plain)
+from .. import planner
 from ..index import Catalog
 from ..join_sampler import JoinSampler
 from ..joins import JoinSpec
+from ..predicates import compile_preds_torch, relation_mask
 
 _I32_LIM = 1 << 31
 _M32 = 0xFFFFFFFF
@@ -155,6 +163,48 @@ def _inverse_cdf_pick(prefix: torch.Tensor, lo: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _device_index_cache(cat: Catalog) -> Dict:
+    """Catalog-level cache of device sorted indexes and column uploads,
+    keyed by relation identity.  Pushdown flavours of one base join (the UQ2
+    regime: one base chain, several overlapping §8.3 filters) share the base
+    relation's sorted keys, permutation and payload tensors instead of
+    re-sorting and re-uploading per flavour.  Entries hold a reference to
+    the relation, so an ``id()`` key cannot be reused after collection."""
+    cache = cat.__dict__.get("_device_index_cache")
+    if cache is None:
+        cache = cat.__dict__["_device_index_cache"] = {}
+    return cache
+
+
+def _cached_node_index(cache: Dict, rel, edge_attrs: Tuple[str, ...],
+                       radices: Tuple[int, ...], device):
+    """Sorted composite-key index over ``rel``: host permutation, device
+    sorted keys and device permutation, shared through the catalog cache.
+    The caller has already checked that the packed domain fits in int32."""
+    k = ("idx", id(rel), rel.name, edge_attrs, radices, str(device))
+    hit = cache.get(k)
+    if hit is None:
+        key = _pack_np([rel.columns[a] for a in edge_attrs], radices)
+        perm = np.argsort(key, kind="stable")
+        hit = (rel, perm,
+               torch.as_tensor(key[perm].astype(np.int32), device=device),
+               torch.as_tensor(perm.astype(np.int64), device=device))
+        cache[k] = hit
+    return hit[1], hit[2], hit[3]
+
+
+def _cached_col(cache: Dict, rel, attr: str, device) -> torch.Tensor:
+    """Device upload of one relation column, shared across flavours."""
+    k = ("col", id(rel), rel.name, attr, str(device))
+    hit = cache.get(k)
+    if hit is None:
+        hit = (rel, torch.as_tensor(_as_i32(rel.columns[attr],
+                                            f"{rel.name}.{attr}"),
+                                    device=device))
+        cache[k] = hit
+    return hit[1]
+
+
 @dataclasses.dataclass(frozen=True)
 class _NodeCfg:
     alias: str
@@ -174,6 +224,15 @@ class TorchTreeJoin:
     and an accumulated ``Π d/M`` acceptance (``M`` = the residual index's
     max degree).  A draw consumes ``n_streams`` rows of uniforms: the root,
     one per node, and (cyclic joins) the acceptance test.
+
+    A §8.3 pushdown (``spec.pushdown_base`` and ``spec.pushed_preds``) is
+    rebuilt as validity masks over the base relations: tree nodes index the
+    base relation (shared across flavours through the catalog cache) with
+    the filtered EW weights scattered onto the base rows, so masked-out rows
+    have weight 0 and a flat prefix region that the inverse-CDF pick never
+    lands in.  Should the base relations overflow a device limit that the
+    filtered ones meet, the join is indexed over the filtered relations
+    instead: the same sampling law without the sharing.
     """
 
     def __init__(self, cat: Catalog, spec: JoinSpec, device=None):
@@ -181,9 +240,58 @@ class TorchTreeJoin:
         self.name = spec.name
         self.spec = spec
         self.attrs = tuple(spec.output_attrs)
+        if spec.pushdown_base is not None and spec.pushed_preds:
+            try:
+                self._build(cat, spec, spec.pushdown_base, spec.pushed_preds)
+                return
+            except ValueError:
+                pass
+        self._build(cat, spec, None, ())
+
+    def _build(self, cat: Catalog, spec: JoinSpec, base: Optional[JoinSpec],
+               preds: Tuple) -> None:
+        """``base is None`` indexes ``spec``'s own relations.  Otherwise
+        ``spec`` is a pushdown of ``base``: tree nodes index the base
+        relations under masks; residual (§8.2) nodes keep per-flavour
+        *filtered* indexes, since their match count ``d`` feeds the
+        ``Π d/M`` acceptance; and any mask turns off the ``uniform``
+        floor(u·d) shortcut, which picks among index rows."""
         js = JoinSampler(cat, spec)                # host EW weights
-        widths = _attr_widths(spec)
         dev = self.device
+        masked = base is not None
+        widths = _attr_widths(base if masked else spec)
+        # masked nodes share the catalog's device indexes; the others build
+        # their own (a throwaway cache)
+        shared = _device_index_cache(cat) if masked else None
+
+        def _source(n, nrows: int):
+            """(relation to index, validity mask or None, index cache)."""
+            if not masked or n.kind == "residual":
+                return n.relation, None, {}
+            rel_b = {bn.alias: bn.relation for bn in base.nodes}.get(n.alias)
+            if rel_b is None:
+                raise ValueError(
+                    f"torch backend: pushdown base of {spec.name!r} has no "
+                    f"node {n.alias!r}")
+            m = relation_mask(rel_b, preds)
+            if m is None:
+                m = np.ones(rel_b.nrows, dtype=bool)
+            if int(m.sum()) != nrows:
+                raise ValueError(
+                    f"torch backend: pushdown provenance of {spec.name!r} is "
+                    f"stale for node {n.alias!r} (mask keeps {int(m.sum())} "
+                    f"rows, the filtered relation has {nrows})")
+            return rel_b, m, shared
+
+        def _on_rows(w, rel, m):
+            """Weights of the filtered rows placed on ``rel``'s rows (the
+            filter keeps row order); masked-out rows get weight 0."""
+            if m is None:
+                return np.asarray(w, np.float64)
+            wb = np.zeros(rel.nrows, dtype=np.float64)
+            wb[np.nonzero(m)[0]] = w
+            return wb
+
         self.node_cfgs: List[_NodeCfg] = []
         self.sorted_keys: List[torch.Tensor] = []
         self.perm: List[torch.Tensor] = []
@@ -191,7 +299,6 @@ class TorchTreeJoin:
         self.cols: List[Dict[str, torch.Tensor]] = []
         produced = set(js.root_rel.attrs)
         for n in js.order[1:]:
-            rel = n.relation
             radices = tuple(widths[a] for a in n.edge_attrs)
             dom = 1
             for w in radices:
@@ -199,46 +306,56 @@ class TorchTreeJoin:
             if dom >= _I32_LIM:
                 raise ValueError(
                     f"torch backend: packed edge-key domain of node {n.alias!r} "
-                    f"(relation {rel.name!r}, edge attrs "
+                    f"(relation {n.relation.name!r}, edge attrs "
                     f"{tuple(n.edge_attrs)!r}) spans {dom} key combinations "
                     f"needing {int(dom).bit_length()} bits, but the device key "
                     "substrate is int32 (31 usable bits)")
-            key = _pack_np([rel.columns[a] for a in n.edge_attrs], radices)
-            perm = np.argsort(key, kind="stable")
+            rel, m, cache = _source(n, n.relation.nrows)
+            perm, skeys, perm_dev = _cached_node_index(
+                cache, rel, tuple(n.edge_attrs), radices, dev)
+            # residual picks are uniform among matches: no prefix.  Equal-
+            # weight nodes (leaves always) pick uniformly among the d matches:
+            # the inverse-CDF pick's law, one search less; it picks among
+            # index rows, so any mask turns it off
             uniform = False
-            if n.kind == "residual":
-                # residual picks are uniform among matches: no prefix needed
+            if n.kind != "residual":
+                w = _on_rows(js.node_weights[n.alias], rel, m)
+                uniform = ((m is None or bool(m.all())) and bool(w.size)
+                           and float(w.flat[0]) > 0
+                           and bool(np.all(w == w.flat[0])))
+            if n.kind == "residual" or uniform:
                 wp = np.zeros(1, dtype=np.float64)
             else:
-                w = js.node_weights[n.alias]
-                # equal-weight nodes (leaves always) pick uniformly among the
-                # d matches: same law as the inverse-CDF pick, one search less
-                uniform = (bool(w.size) and float(w.flat[0]) > 0
-                           and bool(np.all(w == w.flat[0])))
-                if uniform:
-                    wp = np.zeros(1, dtype=np.float64)
-                else:
-                    wp = np.zeros(rel.nrows + 1, dtype=np.float64)
-                    np.cumsum(w[perm], out=wp[1:])
-            cols = {a: torch.as_tensor(_as_i32(c, f"{rel.name}.{a}"), device=dev)
-                    for a, c in rel.columns.items() if a not in produced}
-            produced.update(rel.attrs)
+                wp = np.zeros(rel.nrows + 1, dtype=np.float64)
+                np.cumsum(w[perm], out=wp[1:])
             self.node_cfgs.append(_NodeCfg(
                 n.alias, tuple(n.edge_attrs), radices, kind=n.kind,
                 max_degree=int(js.edges[n.alias].max_degree), uniform=uniform))
-            self.sorted_keys.append(torch.as_tensor(key[perm].astype(np.int32),
-                                                    device=dev))
-            self.perm.append(torch.as_tensor(perm.astype(np.int64), device=dev))
-            self.wprefix.append(torch.as_tensor(wp.astype(np.float32), device=dev))
-            self.cols.append(cols)
+            self.sorted_keys.append(skeys)
+            self.perm.append(perm_dev)
+            self.wprefix.append(torch.as_tensor(wp.astype(np.float32),
+                                                device=dev))
+            self.cols.append({a: _cached_col(cache, rel, a, dev)
+                              for a in rel.attrs if a not in produced})
+            produced.update(rel.attrs)
         self.has_residual = any(c.kind == "residual" for c in self.node_cfgs)
         self.n_streams = len(self.node_cfgs) + 1 + int(self.has_residual)
-        self.root_cols = {a: torch.as_tensor(_as_i32(c, f"root.{a}"), device=dev)
-                          for a, c in js.root_rel.columns.items()}
-        # float32 cast of the float64 host prefix (the reference's rounding)
+        rel0, m0, cache = _source(js.order[0], js.root_rel.nrows)
+        if m0 is None:
+            wp0 = js.root_weight_prefix
+        else:
+            wp0 = np.zeros(rel0.nrows + 1, dtype=np.float64)
+            np.cumsum(_on_rows(np.diff(np.asarray(js.root_weight_prefix,
+                                                  np.float64)), rel0, m0),
+                      out=wp0[1:])
+        self.root_cols = {a: _cached_col(cache, rel0, a, dev)
+                          for a in rel0.columns}
+        self.n_root = rel0.nrows
+        # float32 cast of the float64 host prefix (the reference's rounding):
+        # equal float64 neighbours stay equal, so a masked run stays flat
         self.root_wprefix = torch.as_tensor(
-            js.root_weight_prefix.astype(np.float32), device=dev)
-        self.n_root = js.root_rel.nrows
+            np.asarray(wp0, np.float64).astype(np.float32), device=dev)
+        self.masked = masked
         self._empty = js.is_empty()
 
     def is_empty(self) -> bool:
@@ -305,11 +422,18 @@ class TorchJoinMembership:
 
     A tuple is in the join iff every base relation contains the tuple's
     projection onto that relation's attributes (the shared output schema
-    makes connectivity automatic)."""
+    makes connectivity automatic).  Under §8.3 rejection predicates,
+    membership in the *filtered* join is the base membership AND the
+    compiled predicate over the tuple's own columns; an unlowerable
+    predicate raises ``ValueError``."""
 
     def __init__(self, spec: JoinSpec, device=None):
         self.device = resolve_device(device)
         self.join_name = spec.name
+        self._pred_fn = None
+        if spec.reject_preds:
+            self._pred_fn = compile_preds_torch(spec.reject_preds,
+                                                spec.output_attrs)
         # (attrs, sorted fp1, fp2 in fp1 order, kmax, nrows) per base relation
         self.rels: List[Tuple[Tuple[str, ...], torch.Tensor, torch.Tensor,
                               int, int]] = []
@@ -340,7 +464,8 @@ class TorchJoinMembership:
         fingerprint each attribute set once."""
         first = rows[next(iter(rows))]
         b = first.shape[0]
-        res = torch.ones(b, dtype=torch.bool, device=first.device)
+        res = (torch.ones(b, dtype=torch.bool, device=first.device)
+               if self._pred_fn is None else self._pred_fn(rows))
         for attrs, s1, s2, kmax, n in self.rels:
             if n == 0:
                 return torch.zeros(b, dtype=torch.bool, device=first.device)
@@ -547,6 +672,7 @@ class _LoopState:
     bank: torch.Tensor      # (nj, cap + 1, A+1) int32 ring banks (+ trash)
     head: torch.Tensor      # (nj,) int64
     count: torch.Tensor     # (nj,) int64
+    ema: Optional[torch.Tensor] = None  # (nj, 4) int32, plan="adaptive" only
 
 
 class _ReadySample:
@@ -601,6 +727,8 @@ class _PendingSample:
         return self._done
 
 
+
+
 class TorchUnionSampler:
     """The multi-round Algorithm-1 loop with its state on the device.
 
@@ -611,9 +739,11 @@ class TorchUnionSampler:
        shortfall carried from earlier rounds,
     2. **candidate generation for all joins** — one batched EW tree draw per
        join (cyclic pieces verify their residual edges in the same draw),
-    3. **cover-membership acceptance** — a candidate of piece ``j`` survives
+    3. **§8.3 predicate acceptance** — the piece's ``reject_preds`` and the
+       union-wide ``predicate``, compiled to one mask per piece,
+    4. **cover-membership acceptance** — a candidate of piece ``j`` survives
        iff no earlier cover piece contains it,
-    4. **compaction and banking** — accepted rows ranked to the front per
+    5. **compaction and banking** — accepted rows ranked to the front per
        join (a cumsum scatter); each per-piece target is served first from
        that piece's FIFO surplus bank, then from the fresh accepts, and
        leftover accepts are pushed back into the bank.
@@ -622,10 +752,18 @@ class TorchUnionSampler:
     rounds (never re-drawn from the selection distribution), and the banks
     are FIFOs over i.i.d. streams, so the output is uniform over the union.
     Rounds are driven from Python; each ends in one host sync.
+
+    ``plan="adaptive"`` widens the selection slot (``adaptive_slot``), sizes
+    the draw widths from the seeded acceptance rates (``alloc_batches``) and
+    carries per-piece acceptance EMAs on the device; each round a piece
+    draws only a count-derived prefix of its i.i.d. slots (``budget_for``),
+    and the EMAs take one step from the round's counts (``ema_update``).
     """
 
     def __init__(self, backend: TorchBackend, cover, seed: int = 0,
-                 round_batch: int = 4096, stats=None, uniforms=None):
+                 round_batch: int = 4096, stats=None, uniforms=None,
+                 predicate=None, plan: str = "static",
+                 surplus_cap: Optional[int] = None):
         self.backend = backend
         self.device = backend.device
         self.cover = cover
@@ -639,19 +777,48 @@ class TorchUnionSampler:
         # dead; a call gives up after 4096 rounds; banks hold 8 rounds' slots
         self.dead_rounds = 8
         self.max_rounds = 4096
-        self.surplus_cap = 8 * self.round_batch
+        self.surplus_cap = max(1, 8 * self.round_batch if surplus_cap is None
+                               else int(surplus_cap))
         if stats is None:
             from ..union_sampler import SamplerStats
             stats = SamplerStats()
         self.stats = stats
+        # §8.3 predicate acceptance per cover piece (None = none): its own
+        # reject_preds AND the union-wide predicate, applied between the
+        # draw and the earlier-piece probes
+        self.predicate = predicate
+        gp = tuple(predicate.preds) if predicate is not None else ()
+        self._pred_fns = []
+        for tree in self.trees:
+            own = tuple(tree.spec.reject_preds) + gp
+            self._pred_fns.append(
+                compile_preds_torch(own, tree.spec.output_attrs) if own
+                else None)
         base = np.maximum(np.asarray(cover.selection_probs(), np.float64), 0)
         s = base.sum()
         self._probs_base = torch.as_tensor(
             (base / s if s > 0 else base).astype(np.float32), device=self.device)
         self.piece_batches = _piece_batches(base, self.round_batch)
+        if plan not in ("static", "adaptive"):
+            raise ValueError(f"plan must be 'static' or 'adaptive', got "
+                             f"{plan!r}")
+        self.plan = plan
+        self._slot_width = self.round_batch
+        self._ema_seed = self._ema_shifts = None
+        if plan == "adaptive":
+            self._ema_seed = planner.seed_rates(
+                cover, {t.name: t.spec for t in self.trees})
+            self._slot_width = planner.adaptive_slot(self.round_batch)
+            self.piece_batches = planner.alloc_batches(
+                self.piece_batches, base, self._ema_seed[:, 0],
+                self._slot_width)
+            self._ema_shifts = torch.as_tensor(
+                planner.ema_shifts(self.piece_batches), device=self.device)
         self._pbatch = torch.as_tensor(self.piece_batches, dtype=torch.int64,
                                        device=self.device)
-        self._slot_width = self.round_batch
+        self._pbatch_i32 = self._pbatch.to(torch.int32)
+        self._plan_cache_key = planner.plan_key(backend.cat, backend.joins,
+                                                cover)
         # per-piece bank drain cap per round (a semantics constant shared
         # with the reference: dt = min(need, count, W))
         self._drain_w = min(self.round_batch, 256)
@@ -676,14 +843,25 @@ class TorchUnionSampler:
         stack.enter_context(torch.cuda.stream(self._stream))
         return stack
 
+    def _pred_mask(self, j: int, rows: Rows, acc: torch.Tensor):
+        """Piece ``j``'s §8.3 acceptance: ``(acc & pred, rejected count)``."""
+        pf = self._pred_fns[j]
+        if pf is None:
+            return acc, torch.zeros((), dtype=torch.int64, device=acc.device)
+        pok = pf(rows)
+        return acc & pok, (acc & ~pok).sum()
+
     # -- one round -------------------------------------------------------------
     def _round_core(self, probs_cum: torch.Tensor, owed: torch.Tensor,
-                    extra: torch.Tensor):
-        """Selection + draws + earlier-piece rejection + compaction.
+                    extra: torch.Tensor, ema: Optional[torch.Tensor] = None,
+                    bank_count: Optional[torch.Tensor] = None):
+        """Selection + draws + predicates + earlier-piece rejection +
+        compaction.
 
         Returns per join the accepted-compacted ``(B_j, A+1)`` matrices plus
-        the (walk_ok, residual, accepted) counts and the per-piece need =
-        carry + this round's targets."""
+        the (walk_ok, residual, accepted, predicate-reject) counts, the
+        per-piece need = carry + this round's targets, and (adaptive plan,
+        else None) the per-piece candidate budget."""
         nj = len(self.trees)
         dev = self.device
         members = [self.backend.members[n] for n in self.order]
@@ -695,11 +873,26 @@ class TorchUnionSampler:
         valid = (torch.arange(self._slot_width, device=dev) < extra).to(torch.int64)
         need = owed + torch.zeros(nj, dtype=torch.int64,
                                   device=dev).scatter_add_(0, pick, valid)
-        cols, okc, resc, accc = [], [], [], []
+        budget = None
+        if ema is not None:
+            # integer budget from counts only (owed work minus usable bank
+            # coverage over the accept EMA), in the reference's int32
+            budget = planner.budget_for(
+                need.to(torch.int32), bank_count.to(torch.int32), ema[:, 0],
+                self._pbatch_i32, self._drain_w, planner.TORCH_XP)
+        cols, okc, resc, accc, predc = [], [], [], [], []
         for j, tree in enumerate(self.trees):
             bj = self.piece_batches[j]
             rows, acc, walk_ok = tree.draw(u_joins[j])
+            if budget is not None:
+                # the first budget[j] slots of an i.i.d. candidate stream: a
+                # count-derived prefix, so the survivors stay i.i.d. uniform
+                elig = torch.arange(bj, device=dev) < budget[j]
+                acc = acc & elig
+                walk_ok = walk_ok & elig
             resc.append(walk_ok.sum() - acc.sum())
+            acc, pr = self._pred_mask(j, rows, acc)
+            predc.append(pr)
             fp_cache: Dict = {}
             for q in range(j):             # pieces earlier in cover order
                 acc = acc & ~members[q].contains(rows, fp_cache)
@@ -714,7 +907,7 @@ class TorchUnionSampler:
             okc.append(walk_ok.sum())
             accc.append(acc.sum())
         return (cols, torch.stack(okc), torch.stack(resc), torch.stack(accc),
-                need)
+                torch.stack(predc), need, budget)
 
     def _init_state(self) -> _LoopState:
         nj, cap, dev = len(self.order), self.surplus_cap, self.device
@@ -724,7 +917,9 @@ class TorchUnionSampler:
             streak=z(),
             bank=torch.zeros((nj, cap + 1, len(self.attrs) + 1),
                              dtype=torch.int32, device=dev),
-            head=z(), count=z())
+            head=z(), count=z(),
+            ema=(torch.as_tensor(self._ema_seed, device=dev)
+                 if self.plan == "adaptive" else None))
 
     def sample_async(self, n: int):
         """Run the round loop for ``sample(n)``; the returned handle's
@@ -741,6 +936,7 @@ class TorchUnionSampler:
         nj, cap = len(self.order), self.surplus_cap
         W = min(self._drain_w, cap)
         bt = int(sum(self.piece_batches))
+        adaptive = self.plan == "adaptive"
         if self._state is None:
             self._state = self._init_state()
         st = self._state
@@ -757,8 +953,8 @@ class TorchUnionSampler:
         while True:
             probs_cum, bad = _cover_cum(self._probs_base, st.dead)
             extra = torch.clamp(n - total - st.owed.sum(), 0, self._slot_width)
-            cols, okc, resc, accc, need = self._round_core(probs_cum, st.owed,
-                                                           extra)
+            cols, okc, resc, accc, predc, need, budget = self._round_core(
+                probs_cum, st.owed, extra, st.ema, st.count)
             # bank take (FIFO, capped) → fresh take → carried shortfall
             dt = torch.minimum(torch.minimum(need, st.count),
                                torch.full_like(need, self._drain_w))
@@ -778,14 +974,23 @@ class TorchUnionSampler:
             newly = ~st.dead & (streak >= self.dead_rounds)
             dropped = dropped + torch.where(newly, shortfall, zero).sum()
             shortfall = torch.where(newly, zero, shortfall)
+            # adaptive rounds draw only the budgeted slots; static rounds
+            # spend the full width every round
+            drawn = budget.sum() if adaptive else zero + bt
             stats += torch.stack([
-                zero + bt, zero + bt,
-                okc.sum() - resc.sum() - accc.sum(), resc.sum(), zero,
-                dropped])
-            pstats = torch.stack([pstats[:, 0] + self._pbatch,
-                                  pstats[:, 1] + accc, pstats[:, 2] + resc,
-                                  pstats[:, 3] + dt,
-                                  torch.maximum(pstats[:, 4], count)], dim=1)
+                drawn, drawn,
+                okc.sum() - resc.sum() - predc.sum() - accc.sum(), resc.sum(),
+                predc.sum(), dropped])
+            pstats = torch.stack([
+                pstats[:, 0] + (budget if adaptive else self._pbatch),
+                pstats[:, 1] + accc, pstats[:, 2] + resc, pstats[:, 3] + dt,
+                torch.maximum(pstats[:, 4], count)], dim=1)
+            if adaptive:
+                # one EMA step from this round's counts per budgeted slot
+                counts4 = torch.stack([accc, okc, resc, predc],
+                                      dim=1).to(torch.int32)
+                st.ema = planner.ema_update(st.ema, budget, counts4,
+                                            self._ema_shifts, planner.TORCH_XP)
             st.owed, st.dead, st.streak = shortfall, st.dead | newly, streak
             st.head, st.count = head, count
             fail = fail | bad
@@ -802,10 +1007,310 @@ class TorchUnionSampler:
                               pstats, shuffle)
 
     def sample(self, n: int):
-        return self.sample_async(n).result()
+        t0 = time.perf_counter()
+        ss = self.sample_async(n).result()
+        if n > 0:
+            # feed the host-side cost model (t_round = c0 + c1 * slots)
+            planner.PLAN_CACHE.observe(
+                self._plan_cache_key, self.round_batch,
+                int(sum(self.piece_batches)), self.last_rounds,
+                time.perf_counter() - t0, n)
+        return ss
 
     def _fold_piece_stats(self, p: np.ndarray, samples: int = 0) -> None:
         p = np.asarray(p, np.int64)
         self.piece_stats[:, :4] += p[:, :4]
         self.piece_stats[:, 4] = np.maximum(self.piece_stats[:, 4], p[:, 4])
         self.stats.samples_emitted += int(samples)
+
+
+# ---------------------------------------------------------------------------
+# Record-mode membership (the lazy orig_join record, Alg 1 l.8-12)
+# ---------------------------------------------------------------------------
+
+
+class TorchRecordUnionSampler(TorchUnionSampler):
+    """Algorithm 1 with ``membership="record"``: the ``orig_join`` record as
+    a device-resident sorted-fingerprint multiset.
+
+    The record is four aligned device arrays of capacity ``R``: sorted
+    64-bit row fingerprints as two 32-bit halves (``fp32`` salts 1 and 2,
+    int64 tensors holding uint32 values; empty slots hold the all-ones
+    sentinel pair and sort last), the tuple's current **home** piece, and
+    the count of output rows currently credited to the entry.  A round is
+    driven from the host (one sync per round: the lazy record semantics
+    need the round's counts back) and processes the cover pieces in
+    ascending order against the live record:
+
+    * draw ``piece_batches[j]`` candidates (tree walk + §8.2 residual + the
+      §8.3 predicate mask),
+    * probe the record (``searchsorted`` + the ``_KWIN`` duplicate window):
+      a candidate is **rejected** when its record home is an earlier piece
+      (Alg 1 line 8), **revises** when its home is a later piece (lines
+      10-12: the old entry's credited rows are debited and its home moves
+      to ``j``), and is accepted otherwise,
+    * take the first ``need_j`` accepted candidates in slot order (a
+      truncation of an i.i.d. stream; no surplus banking, since banked rows
+      could be invalidated by later revisions),
+    * fold the taken rows into the record: revision flags scatter onto hit
+      entries, missed fingerprints are deduplicated with run-length credit
+      counts and merged by one sorted concatenation.
+
+    Revision cannot rewrite rows already handed out, so emission is settled
+    at the end of the call: an emitted row is kept iff its emit-time home
+    equals its **final** record home, and the first ``n`` valid rows in
+    emission order, shuffled, are the sample.  Per-round targets are a
+    host ``multinomial`` from ``default_rng(seed)``, which also draws the
+    output shuffle; the device uniforms come from ``uniforms.round(0, ...)``
+    (no selection slot).
+    """
+
+    _KWIN = 8          # fp1 duplicate window (cf. TorchJoinMembership)
+    _SENTINEL = 0xFFFFFFFF
+
+    def __init__(self, backend: TorchBackend, cover, seed: int = 0,
+                 round_batch: int = 4096, stats=None, uniforms=None,
+                 predicate=None, plan: str = "static",
+                 surplus_cap: Optional[int] = None,
+                 record_capacity: Optional[int] = None):
+        # budget masking would interleave with the lazy-record semantics
+        if plan != "static":
+            raise ValueError(
+                "membership='record' supports plan='static' only")
+        super().__init__(backend, cover, seed=seed, round_batch=round_batch,
+                         stats=stats, uniforms=uniforms, predicate=predicate,
+                         surplus_cap=surplus_cap)
+        self.host_rng = np.random.default_rng(seed)
+        self._sorted_attrs = tuple(sorted(self.attrs))
+        self.record_capacity = record_capacity
+        nj = len(self.order)
+        self._dead = np.zeros(nj, dtype=bool)
+        self._streak = np.zeros(nj, dtype=np.int64)
+        self._rec: Optional[Dict[str, torch.Tensor]] = None
+        self.R = 0
+
+    def _init_record(self, n: int) -> Dict[str, torch.Tensor]:
+        r = (int(self.record_capacity) if self.record_capacity is not None
+             else 1 << max(12, (4 * int(n) - 1).bit_length()))
+        self.R = r
+        dev = self.device
+        return {"f1": torch.full((r,), self._SENTINEL, dtype=torch.int64,
+                                 device=dev),
+                "f2": torch.full((r,), self._SENTINEL, dtype=torch.int64,
+                                 device=dev),
+                "home": torch.full((r,), 0x7FFFFFFF, dtype=torch.int32,
+                                   device=dev),
+                "emit": torch.zeros(r, dtype=torch.int32, device=dev),
+                "count": torch.zeros((), dtype=torch.int64, device=dev),
+                "fail": torch.zeros((), dtype=torch.bool, device=dev)}
+
+    def _lookup(self, f1s, f2s, q1, q2):
+        """First record position holding ``(q1, q2)`` within the duplicate
+        window: ``(hit, pos)``."""
+        R = f1s.shape[0]
+        lo = torch.searchsorted(f1s, q1, side="left")
+        hit = torch.zeros(q1.shape[0], dtype=torch.bool, device=q1.device)
+        epos = torch.zeros(q1.shape[0], dtype=torch.int64, device=q1.device)
+        for k in range(self._KWIN):
+            pos = torch.clamp(lo + k, max=R - 1)
+            m = (lo + k < R) & (f1s[pos] == q1) & (f2s[pos] == q2)
+            epos = torch.where(m & ~hit, pos, epos)
+            hit = hit | m
+        return hit, epos
+
+    def _record_round(self, st: Dict[str, torch.Tensor], need: torch.Tensor):
+        """One round over the pieces in cover order; returns the new record
+        state, the taken rows per piece and the (nj, 8) count matrix
+        (taken, walk_ok, residual, pred, cover rejects, accepted, revisions,
+        debited rows)."""
+        dev = self.device
+        R = self.R
+        sent = self._SENTINEL
+        _, u_joins = self.uniforms.round(
+            0, [(t.n_streams, b) for t, b in zip(self.trees, self.piece_batches)])
+        cols_out, counts = [], []
+        for j, tree in enumerate(self.trees):
+            bj = self.piece_batches[j]
+            rows, acc, walk_ok = tree.draw(u_joins[j])
+            okc, resc = walk_ok.sum(), walk_ok.sum() - acc.sum()
+            acc, predc = self._pred_mask(j, rows, acc)
+            f1 = fp32([rows[a] for a in self._sorted_attrs], salt=1)
+            f2 = fp32([rows[a] for a in self._sorted_attrs], salt=2)
+            # record lookup against the start-of-piece state
+            hit, epos = self._lookup(st["f1"], st["f2"], f1, f2)
+            home = st["home"][epos]
+            rejc = (acc & hit & (home < j)).sum()
+            accepted = acc & (~hit | (home >= j))
+            rank = torch.cumsum(accepted, 0) - 1
+            taken = accepted & (rank < need[j])
+            ft = torch.minimum(accepted.sum(), need[j])
+            # emit: taken rows compacted to the front (rank scatter)
+            dst = torch.where(taken, torch.cumsum(taken, 0) - 1, bj)
+            mat = torch.stack([rows[a] for a in self.attrs], dim=1)
+            col = torch.zeros((bj + 1, mat.shape[1]), dtype=torch.int32,
+                              device=dev)
+            col[dst] = mat
+            cols_out.append(col[:bj])
+            # revisions: taken hits whose entry lives at a LATER piece —
+            # debit the entry's credited rows, move its home to j
+            th = taken & hit
+            rev = th & (home > j)
+            rev_flag = torch.zeros(R + 1, dtype=torch.bool, device=dev)
+            rev_flag[torch.where(rev, epos, R)] = True
+            rev_flag = rev_flag[:R]
+            revc = rev_flag.sum()
+            inval = torch.where(rev_flag, st["emit"], 0).sum()
+            emit2 = torch.where(rev_flag, 0, st["emit"])
+            home2 = torch.where(rev_flag, j, st["home"])
+            emit2 = torch.cat([emit2, emit2.new_zeros(1)]).index_add_(
+                0, torch.where(th, epos, R),
+                torch.ones(bj, dtype=torch.int32, device=dev))[:R]
+            # insert taken misses: lexicographic (f1, f2) sort → dedup →
+            # run-length credit counts → one sorted-concat merge
+            tm = taken & ~hit
+            cf1 = torch.where(tm, f1, sent)
+            cf2 = torch.where(tm, f2, sent)
+            o = torch.argsort(cf2, stable=True)
+            o = o[torch.argsort(cf1[o], stable=True)]
+            sf1, sf2, stm = cf1[o], cf2[o], tm[o]
+            first = torch.arange(bj, device=dev) == 0
+            dup = (~first & (sf1 == torch.roll(sf1, 1))
+                   & (sf2 == torch.roll(sf2, 1)))
+            is_new = stm & ~dup
+            g = torch.cumsum(is_new, 0) - 1
+            cnt = torch.zeros(bj + 1, dtype=torch.int32, device=dev).index_add_(
+                0, torch.where(stm, g, bj),
+                torch.ones(bj, dtype=torch.int32, device=dev))[:bj]
+            n_new = is_new.sum()
+            new_emit = torch.where(is_new, cnt[torch.clamp(g, 0, bj - 1)], 0)
+            nf1 = torch.where(is_new, sf1, sent)
+            nf2 = torch.where(is_new, sf2, sent)
+            nhome = torch.where(is_new, j, 0x7FFFFFFF).to(torch.int32)
+            mf1 = torch.cat([st["f1"], nf1])
+            morder = torch.argsort(mf1, stable=True)[:R]
+            st = {"f1": mf1[morder],
+                  "f2": torch.cat([st["f2"], nf2])[morder],
+                  "home": torch.cat([home2, nhome])[morder],
+                  "emit": torch.cat([emit2, new_emit.to(torch.int32)])[morder],
+                  "count": st["count"] + n_new,
+                  "fail": st["fail"] | (st["count"] + n_new > R)}
+            counts.append(torch.stack([ft, okc, resc, predc, rejc,
+                                       accepted.sum(), revc, inval]))
+        return st, cols_out, torch.stack(counts)
+
+    def sample_async(self, n: int):
+        from ..union_sampler import empty_sample_set
+        if n <= 0:
+            return _ReadySample(empty_sample_set(list(self.attrs), self.stats))
+        with self._on_device():
+            return _ReadySample(self._sample_record(int(n)))
+
+    def sample(self, n: int):
+        return self.sample_async(n).result()
+
+    def _sample_record(self, n: int):
+        from ..relation import fingerprint128
+        from ..union_sampler import SampleSet
+        dev = self.device
+        nj, bt = len(self.order), int(sum(self.piece_batches))
+        if self._rec is None:
+            self._rec = self._init_record(n)
+        pbatch = np.asarray(self.piece_batches, np.int64)
+        pstats = np.zeros((nj, len(PIECE_STAT_FIELDS)), np.int64)
+        dead, streak = self._dead, self._streak
+        base = self._probs_base.cpu().numpy().astype(np.float64)
+        parts: List[Tuple[torch.Tensor, int]] = []   # emission order
+        carry = np.zeros(nj, dtype=np.int64)
+        valid = 0
+        rounds = 0
+        self.last_host_syncs = 0
+        while valid < n:
+            rounds += 1
+            if rounds > self.max_rounds:
+                raise RuntimeError(
+                    "TorchRecordUnionSampler: top-up budget exhausted")
+            probs = np.where(dead, 0.0, base)
+            s = probs.sum()
+            if s <= 0:
+                raise RuntimeError("all cover pieces unreachable")
+            extra = max(0, min(n - valid - int(carry.sum()), self.round_batch))
+            need = carry + self.host_rng.multinomial(extra, probs / s)
+            self._rec, cols, cnt = self._record_round(
+                self._rec, torch.as_tensor(need, device=dev))
+            # the one host sync of the round: counts and the capacity flag
+            cnt = torch.cat([cnt.reshape(-1),
+                             self._rec["fail"].to(torch.int64)[None]]).tolist()
+            self.last_host_syncs += 1
+            self.host_syncs += 1
+            if cnt[-1]:
+                raise RuntimeError(
+                    f"TorchRecordUnionSampler: record capacity R={self.R} "
+                    "exhausted; pass record_capacity= to size the multiset "
+                    "for the expected distinct-tuple volume")
+            c = np.asarray(cnt[:-1], np.int64).reshape(nj, 8)
+            ft, okc, resc, predc, rejc, accc, revc, inval = c.T
+            for j in range(nj):
+                if ft[j]:
+                    parts.append((cols[j][:ft[j]], j))
+            valid += int(ft.sum()) - int(inval.sum())
+            self.stats.iterations += bt
+            self.stats.candidate_draws += bt
+            self.stats.residual_rejects += int(resc.sum())
+            self.stats.pred_rejects += int(predc.sum())
+            self.stats.cover_rejects += int(rejc.sum())
+            self.stats.revisions += int(revc.sum())
+            self.stats.backtrack_removed += int(inval.sum())
+            pstats[:, 0] += pbatch
+            pstats[:, 1] += accc
+            pstats[:, 2] += resc
+            # no surplus banking in record mode: columns 3/4 stay zero
+            shortfall = need - ft
+            self.stats.dropped_slots += int(shortfall[dead].sum())
+            shortfall[dead] = 0
+            trig = (shortfall > 0) & (accc == 0)
+            streak[:] = np.where(dead, streak, np.where(trig, streak + 1, 0))
+            newly = ~dead & (streak >= self.dead_rounds)
+            self.stats.dropped_slots += int(shortfall[newly].sum())
+            shortfall[newly] = 0
+            dead |= newly
+            carry = shortfall
+        self.last_rounds = rounds
+        self.total_rounds += rounds
+        self._fold_piece_stats(pstats, samples=n)
+        # settle emission: keep rows whose emit-time home is still the final
+        # record home (revised copies are exactly the ones whose home moved)
+        mat = torch.cat([torch.cat([m, torch.full((m.shape[0], 1), j,
+                                                  dtype=torch.int32,
+                                                  device=dev)], dim=1)
+                         for m, j in parts])
+        by_attr = {a: mat[:, i] for i, a in enumerate(self.attrs)}
+        q1 = fp32([by_attr[a] for a in self._sorted_attrs], salt=1)
+        q2 = fp32([by_attr[a] for a in self._sorted_attrs], salt=2)
+        found, pos = self._lookup(self._rec["f1"], self._rec["f2"], q1, q2)
+        keep = found & (self._rec["home"][pos] == mat[:, -1])
+        mat = mat[keep][:n].cpu().numpy().astype(np.int64)
+        self.last_host_syncs += 1
+        self.host_syncs += 1
+        if mat.shape[0] < n:
+            raise RuntimeError(
+                "TorchRecordUnionSampler: settled emission came up short "
+                f"({mat.shape[0]} < {n}) — record fingerprint collision")
+        mat = mat[self.host_rng.permutation(n)]
+        rows = {a: np.ascontiguousarray(mat[:, i])
+                for i, a in enumerate(self.attrs)}
+        home = np.ascontiguousarray(mat[:, -1])
+        fp = fingerprint128([rows[a] for a in sorted(self.attrs)])
+        return SampleSet(list(self.attrs), rows, home, fp, self.stats)
+
+    def record_dict(self) -> Dict[int, Tuple[int, int]]:
+        """The current record as ``{fp64: (home, credited_rows)}``."""
+        if self._rec is None:
+            return {}
+        f1 = self._rec["f1"].cpu().numpy().astype(np.uint64)
+        f2 = self._rec["f2"].cpu().numpy().astype(np.uint64)
+        home = self._rec["home"].cpu().numpy()
+        emit = self._rec["emit"].cpu().numpy()
+        real = ~((f1 == self._SENTINEL) & (f2 == self._SENTINEL))
+        return {int((f1[i] << np.uint64(32)) | f2[i]):
+                (int(home[i]), int(emit[i]))
+                for i in np.nonzero(real)[0]}

@@ -10,7 +10,10 @@ diagnostics) and the cover sizes of Algorithm 1:
 
 Both handle cyclic (§8.2 skeleton+residual) members: ``exact`` counts
 distinct tuples of the materialised join, and the histogram algebra treats
-residual edges as links to their earlier relations.
+residual edges as links to their earlier relations.  Joins with §8.3
+rejection predicates are counted after the filter (``exact``) or scaled by
+their estimated selectivity (``histogram``).  The random-walk method waits
+for the port of the estimators.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ class WarmupResult:
 
 def _exact_size_fn(cat: Catalog):
     def f(j: JoinSpec) -> float:
-        if j.is_cyclic:
+        if j.is_cyclic or j.reject_preds:
+            # cyclic: residual edges; reject_preds: the filtered join must be
+            # counted — both need the materialised distinct count
             return float(exact_join_size_distinct(cat, j))
         # duplicate-free base relations => join output duplicate-free, so the
         # EW total weight IS the distinct size (cheap, no materialisation).
@@ -57,8 +62,14 @@ def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact"
         aux = None
     elif method == "histogram":
         hist = HistogramOverlap(cat, joins)
-        oracle = OverlapOracle(hist.estimate, lambda j: olken_bound(cat, j),
-                               joins)
+        est_fn = hist.estimate
+        if any(j.reject_preds for j in joins):
+            # §8.3 rejection predicates: overlaps of filtered joins shrink by
+            # (at least) the most selective member's predicate; olken_bound
+            # scales per-join internally
+            from .predicates import scaled_overlap_estimate
+            est_fn = scaled_overlap_estimate(hist.estimate)
+        oracle = OverlapOracle(est_fn, lambda j: olken_bound(cat, j), joins)
         aux = hist
     else:
         raise ValueError(f"unknown warmup method {method!r} "

@@ -86,8 +86,10 @@ class Catalog:
     def __init__(self) -> None:
         self._indexes: Dict[Tuple[str, Tuple[str, ...]], SortedIndex] = {}
         self._stats: Dict[Tuple[str, Tuple[str, ...]], ColumnStats] = {}
+        self._relations: Dict[str, Relation] = {}   # planner.plan_key reads it
 
     def index(self, rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:
+        self._relations[rel.name] = rel
         k = (rel.name, tuple(key_attrs))
         if k not in self._indexes:
             self._indexes[k] = build_index(rel, key_attrs)

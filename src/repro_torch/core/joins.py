@@ -1,7 +1,7 @@
 """Join specifications: chain, acyclic (tree), and cyclic joins.
 
-Port copy of ``repro.core.joins`` without the §8.3 predicate provenance
-(predicates are not part of this slice).  A join is an ordered list of
+Port copy of ``repro.core.joins``, §8.3 predicate provenance included.  A
+join is an ordered list of
 :class:`JoinNode`.  Tree nodes reference a parent node and equi-join it on
 ``edge_attrs`` (attribute names are standardised across relations).  Cyclic
 joins are an acyclic *skeleton* tree plus *residual* nodes whose edge
@@ -11,7 +11,8 @@ All joins keep their full concatenated output schema (every base attribute
 survives; join attributes appear once), which is what makes the batched
 membership probes exact.  ``full_join`` materialises the result with
 vectorised sorted-index expansion — the FULLJOIN baseline, used by the exact
-warm-up and the tests, not by the samplers.
+warm-up and the tests, not by the samplers; it applies ``reject_preds``, as
+does :func:`join_size`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,19 @@ class JoinNode:
 
 class JoinSpec:
     """An ordered join over base relations (chain / acyclic / cyclic)."""
+
+    # §8.3 predicate provenance — set by the repro_torch.core.predicates
+    # helpers (class-level defaults keep hand-built specs clean):
+    #  * pushed_preds / pushdown_base: filters already materialised into the
+    #    nodes by pushdown(), plus the unfiltered spec they came from — the
+    #    device engine rebuilds the filtered join as validity masks over the
+    #    base relations from these.
+    #  * reject_preds: sampler-side per-join rejection predicates — samplers
+    #    reject failing candidates, membership/size estimation apply them, so
+    #    the filtered join is the set-union member everywhere.
+    pushed_preds: Tuple = ()
+    pushdown_base: Optional["JoinSpec"] = None
+    reject_preds: Tuple = ()
 
     def __init__(self, name: str, nodes: Sequence[JoinNode]):
         self.name = name
@@ -172,12 +186,22 @@ def _expand(cat: Catalog, inter: Dict[str, np.ndarray], child: Relation,
 
 
 def full_join(cat: Catalog, spec: JoinSpec) -> Dict[str, np.ndarray]:
-    """Materialise the join result (the expensive FULLJOIN baseline)."""
+    """Materialise the join result (the expensive FULLJOIN baseline).
+
+    ``reject_preds`` (if any) are applied to the output — the filtered join
+    is the member of the union, so exact baselines must count it.
+    """
     order = spec.expansion_order()
     inter: Dict[str, np.ndarray] = {a: c.copy()
                                     for a, c in order[0].relation.columns.items()}
     for n in order[1:]:
         inter = _expand(cat, inter, n.relation, n.edge_attrs)
+    if spec.reject_preds:
+        n_rows = next(iter(inter.values())).shape[0] if inter else 0
+        keep = np.ones(n_rows, dtype=bool)
+        for p in spec.reject_preds:
+            keep &= p.mask(inter)
+        inter = {a: c[keep] for a, c in inter.items()}
     return inter
 
 
@@ -190,3 +214,31 @@ def full_join_matrix(cat: Catalog, spec: JoinSpec,
     if n == 0:
         return np.zeros((0, len(attrs)), dtype=np.int64)
     return np.stack([res[a] for a in attrs], axis=1)
+
+
+def join_size(cat: Catalog, spec: JoinSpec) -> int:
+    """|J| without materialising attribute payloads (counts only)."""
+    if spec.reject_preds:
+        # predicate columns must be materialised to count survivors
+        res = full_join(cat, spec)
+        return int(next(iter(res.values())).shape[0]) if res else 0
+    order = spec.expansion_order()
+    inter: Dict[str, np.ndarray] = dict(order[0].relation.columns)
+    count_weight = np.ones(order[0].relation.nrows, dtype=np.int64)
+    for i, n in enumerate(order[1:], start=1):
+        idx = cat.index(n.relation, list(n.edge_attrs))
+        lo, hi = idx.ranges(combine_columns([inter[a] for a in n.edge_attrs]))
+        counts = hi - lo
+        # expand only when this child brings attributes a later edge keys on
+        later_needed = set()
+        for m in order[i + 1:]:
+            later_needed.update(m.edge_attrs)
+        new_attrs = [a for a in n.relation.attrs if a not in inter]
+        if any(a in later_needed for a in new_attrs):
+            inter = _expand(cat, inter, n.relation, n.edge_attrs)
+            count_weight = np.repeat(count_weight, counts)
+        else:
+            keep = counts > 0
+            count_weight = count_weight[keep] * counts[keep]
+            inter = {a: c[keep] for a, c in inter.items()}
+    return int(count_weight.sum())

@@ -1,12 +1,22 @@
 """§3: Algorithm 1 — cover-based set-union sampling on the card.
 
-Port of ``repro.core.union_sampler`` for the device engine of this slice:
+Port of ``repro.core.union_sampler`` for the device engine:
 :class:`SetUnionSampler` selects joins with ``P = |J'_j|/|U|`` from a
 :class:`~repro_torch.core.cover.Cover` and, inside the selected join, draws
-until the candidate lands in the cover piece ``J'_j`` (probe membership
-against the earlier pieces), which makes every emitted sample uniform over
-the union.  All of it runs in
-:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler`.
+until the candidate lands in the cover piece ``J'_j``, which makes every
+emitted sample uniform over the union.  Two cover-membership modes:
+
+- ``membership="probe"`` — exact batched membership probes against the
+  earlier joins (:class:`~repro_torch.core.backends.torch_backend.
+  TorchUnionSampler`), with ``plan="static"`` or ``plan="adaptive"``;
+- ``membership="record"`` — the paper's lazy ``orig_join`` record with
+  revision (:class:`~repro_torch.core.backends.torch_backend.
+  TorchRecordUnionSampler`), ``plan="static"`` only.
+
+§8.3 predicates run in the round: ``pushdown()`` provenance becomes
+build-time validity masks, rejection predicates (union-wide ``predicate=``
+or per-join ``JoinSpec.reject_preds``) in-round acceptance masks.  The port
+has no host engine: predicates that cannot lower to the device raise.
 
 ``SampleSet.rows``, ``home`` and ``fingerprint`` are host numpy arrays
 (int64 and uint64) after the one device→host copy per ``sample(n)``, as in
@@ -16,7 +26,7 @@ the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -91,27 +101,69 @@ class SetUnionSampler:
 
     ``backend="torch"`` is the only engine of the port; ``device=None``
     means the card and raises without one (pass ``device="cpu"`` for the
-    plain PyTorch path).  ``uniforms`` replaces the device Philox stream
-    (tests replay the reference's uniforms through it)."""
+    plain PyTorch path).  ``round_batch=None`` consults the port's
+    ``planner.PLAN_CACHE`` (fed by this process's timed calls) and falls
+    back to 4096 while it is cold.  ``uniforms`` replaces the device Philox
+    stream (tests replay the reference's uniforms through it)."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], cover: Cover,
                  seed: int = 0, backend: str = "torch", device=None,
-                 round_batch: int = 4096, uniforms=None):
-        from .backends.torch_backend import TorchBackend, TorchUnionSampler
+                 round_batch: Optional[int] = 4096, uniforms=None,
+                 membership: str = "probe", predicate=None,
+                 plan: str = "static"):
+        from .backends.torch_backend import (TorchBackend,
+                                             TorchRecordUnionSampler,
+                                             TorchUnionSampler)
         if backend != "torch":
             raise ValueError(f"repro_torch runs backend='torch' only, got "
                              f"{backend!r}")
+        if membership not in ("probe", "record"):
+            raise ValueError("membership must be 'probe' or 'record'")
+        if plan not in ("static", "adaptive"):
+            raise ValueError("plan must be 'static' or 'adaptive', got "
+                             f"{plan!r}")
         self.cat = cat
         self.joins = list(joins)
         self.cover = cover
         self.order = list(cover.order)
         self.attrs = list(self.joins[0].output_attrs)
+        self.membership = membership
+        self.plan = plan
+        self.predicate = predicate
+        # §8.3 rejection predicates must lower to in-round masks: the
+        # reference degrades the union to its host engine otherwise; the
+        # port has none and refuses
+        from .predicates import device_lower_reason
+        for j in self.joins:
+            preds = list(j.reject_preds)
+            if predicate is not None:
+                preds += list(predicate.preds)
+            reason = device_lower_reason(preds, j.output_attrs)
+            if reason is not None:
+                raise ValueError(
+                    f"predicate not device-lowerable ({reason}) in join "
+                    f"{j.name!r}; the port has no host engine to run it")
+        # round_batch=None: the autotuning cost model, 4096 while cold
+        self.autotuned_plan = None
+        surplus_cap = None
+        if round_batch is None:
+            from . import planner
+            self.autotuned_plan = planner.PLAN_CACHE.suggest(
+                planner.plan_key(cat, self.joins, cover))
+            if self.autotuned_plan is not None:
+                round_batch = self.autotuned_plan.round_batch
+                surplus_cap = self.autotuned_plan.surplus_cap
+            else:
+                round_batch = 4096
         self.backend = TorchBackend(cat, self.joins, device=device)
         self.device = self.backend.device
         self.stats = SamplerStats()
-        self.engine = TorchUnionSampler(
+        engine = (TorchRecordUnionSampler if membership == "record"
+                  else TorchUnionSampler)
+        self.engine = engine(
             self.backend, cover, seed=seed, round_batch=round_batch,
-            stats=self.stats, uniforms=uniforms)
+            stats=self.stats, uniforms=uniforms, predicate=predicate,
+            plan=plan, surplus_cap=surplus_cap)
 
     @property
     def prober(self):

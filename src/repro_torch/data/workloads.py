@@ -1,18 +1,20 @@
-"""The evaluation workloads of the port: UQ1, UQ3 (§9) and the cyclic UQ4.
+"""The evaluation workloads of the port: UQ1, UQ2, UQ3 (§9) and the cyclic UQ4.
 
 Port copy of ``repro.data.workloads`` (same seeds, same arrays):
 
 * **UQ1** — five chain joins, five relations each
   (nation ⋈ supplier ⋈ customer ⋈ orders ⋈ lineitem), one variant database
   per join sharing ``overlap`` of the base rows.
+* **UQ2** — three chain joins over the *same* data
+  (region ⋈ nation ⋈ supplier ⋈ partsupp ⋈ part) distinguished only by
+  overlapping selection predicates on ``psize`` (the high-overlap workload,
+  the paper's Q2 flavours), in either §8.3 predicate mode.
 * **UQ3** — one acyclic (branching-tree) join + two chain joins derived
   from customer/orders via vertical splits — different relation schemas,
   same output schema: exercises the §5.2 splitting method.
 * **UQ4** — union of a cyclic join (supplier ⋈ partsupp ⋈ part + a
   cycle-closing preferred-supplier relation as the §8.2 residual) with an
   equivalent denormalised chain.
-
-UQ2 (§8.3 predicates) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 
 from ..core.index import Catalog
 from ..core.joins import JoinNode, JoinSpec, chain_join, full_join
+from ..core.predicates import Pred, pushdown, rejection
 from ..core.relation import Relation
 from .tpch import TpchLite, generate, make_variants, vertical_split
 
@@ -60,6 +63,35 @@ def uq1(scale: float = 0.02, overlap: float = 0.2, seed: int = 0,
             [("nk",), ("nk",), ("ck",), ("ok",)],
         ))
     return Workload("UQ1", joins, cat, db)
+
+
+def uq2(scale: float = 0.02, seed: int = 0, skew: float = 0.0,
+        pred_mode: str = "pushdown") -> Workload:
+    """UQ2 in either §8.3 predicate mode.
+
+    * ``pred_mode="pushdown"`` — base relations filtered at build time; the
+      specs carry pushdown provenance so the device engine rebuilds them as
+      validity masks over the shared base relations.
+    * ``pred_mode="rejection"`` — the three flavours share the *same*
+      unfiltered nodes and differ only in per-join ``reject_preds``;
+      candidates failing them are rejected during sampling.
+    """
+    if pred_mode not in ("pushdown", "rejection"):
+        raise ValueError("pred_mode must be 'pushdown' or 'rejection'")
+    db = generate(scale, seed=seed, skew=skew)
+    cat = Catalog()
+    supplier = db["supplier"].rename({"s_nk": "nk"})
+    base = chain_join(
+        "UQ2_BASE",
+        [db["region"], db["nation"], supplier, db["partsupp"], db["part"]],
+        [("rk",), ("nk",), ("sk",), ("pk",)],
+    )
+    # overlapping selection predicates (the paper's Q2^N / Q2^P / Q2^S flavour)
+    mk = pushdown if pred_mode == "pushdown" else rejection
+    j_n = mk(base, [Pred("psize", "<=", 40)], name="UQ2_JN")
+    j_p = mk(base, [Pred("psize", ">=", 10)], name="UQ2_JP")
+    j_s = mk(base, [Pred("psize", "in", set(range(5, 46)))], name="UQ2_JS")
+    return Workload("UQ2", [j_n, j_p, j_s], cat, db)
 
 
 def uq3(scale: float = 0.02, overlap: float = 0.2, seed: int = 0) -> Workload:
@@ -132,4 +164,4 @@ def uq4(scale: float = 0.02, seed: int = 0) -> Workload:
     return Workload("UQ4", [j_cyc, j_chain], cat, db)
 
 
-WORKLOADS = {"UQ1": uq1, "UQ3": uq3, "UQ4": uq4}
+WORKLOADS = {"UQ1": uq1, "UQ2": uq2, "UQ3": uq3, "UQ4": uq4}

@@ -4,22 +4,27 @@ The reference's "weights" are its data and state: relation columns, join
 specs and the cover.  :func:`workload_from_numpy` builds the port's
 :class:`Catalog`, :class:`JoinSpec` list and :class:`Cover` from plain
 numpy arrays and tuples, so a test can feed both packages the same state
-without the port importing the reference.
+without the port importing the reference.  §8.3 predicates travel as plain
+``(attr, op, value)`` tuples, and a pushdown's unfiltered base join as a
+join tuple over the base relations.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .core.cover import Cover
 from .core.index import Catalog
 from .core.joins import JoinNode, JoinSpec
+from .core.predicates import Pred
 from .core.relation import Relation
 
 # one join node: (alias, relation name, parent alias or None, edge attrs, kind)
 NodeTuple = Tuple[str, str, Optional[str], Sequence[str], str]
+# one predicate: (attr, op, value)
+PredTuple = Tuple[str, str, Any]
 
 
 def workload_from_numpy(relations: Mapping[str, Mapping[str, np.ndarray]],
@@ -29,17 +34,37 @@ def workload_from_numpy(relations: Mapping[str, Mapping[str, np.ndarray]],
                         join_sizes: Optional[Mapping[str, float]] = None
                         ) -> Tuple[Catalog, List[JoinSpec], Cover]:
     """``relations``: name → {attr: column}; ``joins``: (join name, nodes)
-    in union order; ``cover_order``/``cover_sizes``: the cover's join order
-    and piece sizes |J'_i| (``join_sizes`` |J_i| default to the piece
-    sizes).  Relations are shared by name across joins."""
+    or (join name, nodes, predicates) in union order, where predicates maps
+    ``pushed_preds`` and ``reject_preds`` to lists of :data:`PredTuple` and
+    ``pushdown_base`` to a (join name, nodes) tuple over the unfiltered
+    relations; ``cover_order``/``cover_sizes``: the cover's join order and
+    piece sizes |J'_i| (``join_sizes`` |J_i| default to the piece sizes).
+    Relations are shared by name across joins (a filtered relation keeps
+    the name ``pushdown`` gave it)."""
     rels: Dict[str, Relation] = {
         name: Relation(name, {a: np.asarray(c) for a, c in cols.items()})
         for name, cols in relations.items()}
     cat = Catalog()
-    specs = [JoinSpec(jname, [JoinNode(alias, rels[rel], parent,
-                                       tuple(edge), kind)
-                              for alias, rel, parent, edge, kind in nodes])
-             for jname, nodes in joins]
+    bases: Dict[str, JoinSpec] = {}
+
+    def spec_of(jname, nodes):
+        return JoinSpec(jname, [JoinNode(alias, rels[rel], parent,
+                                         tuple(edge), kind)
+                                for alias, rel, parent, edge, kind in nodes])
+
+    specs = []
+    for j in joins:
+        spec = spec_of(j[0], j[1])
+        preds = j[2] if len(j) > 2 else {}
+        if preds.get("pushdown_base") is not None:
+            bname, bnodes = preds["pushdown_base"]
+            if bname not in bases:             # flavours share one base spec
+                bases[bname] = spec_of(bname, bnodes)
+            spec.pushdown_base = bases[bname]
+        for k in ("pushed_preds", "reject_preds"):
+            if preds.get(k):
+                setattr(spec, k, tuple(Pred(*p) for p in preds[k]))
+        specs.append(spec)
     order = list(cover_order)
     pieces = {n: float(cover_sizes[n]) for n in order}
     sizes = pieces if join_sizes is None else {n: float(join_sizes[n])

@@ -8,6 +8,11 @@ batching) over the torch engine, on the card unless ``--device cpu``::
         --workload UQ1 --requests 16 --samples 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \\
         --device cpu --scale 0.05 --requests 2 --samples 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \\
+        --workload UQ2 --plan adaptive
+
+``--workload UQ2`` builds the §8.3 predicate workload in its default
+pushdown mode; ``--plan adaptive`` runs the adaptive round planner.
 
 It prints the served rate, ψ (candidate draws per emitted sample), rounds
 and host syncs.  The LM decode mode, sharding and the ``/metrics`` endpoint
@@ -24,7 +29,7 @@ import numpy as np
 
 
 def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
-                  round_batch: int = 8192):
+                  round_batch: int = 8192, plan: str = "static"):
     """Workload → histogram warm-up → cover → ``SetUnionSampler``.
 
     Returns ``(sampler, workload, estimates, host_build_seconds)``."""
@@ -38,7 +43,7 @@ def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
     est = estimate_union(wr.oracle)
     sampler = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=seed,
                               backend="torch", device=device,
-                              round_batch=round_batch)
+                              round_batch=round_batch, plan=plan)
     return sampler, wl, est, time.perf_counter() - t0
 
 
@@ -74,6 +79,7 @@ def serve(sampler, requests: int, samples: int, batch: int,
         "candidate_draws": st.candidate_draws,
         "cover_rejects": st.cover_rejects,
         "residual_rejects": st.residual_rejects,
+        "pred_rejects": st.pred_rejects,
         "dropped_slots": st.dropped_slots,
         "home_counts": homes.tolist(),
         "host_syncs": engine.host_syncs,
@@ -84,12 +90,17 @@ def serve(sampler, requests: int, samples: int, batch: int,
 def main(argv: Optional[list] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("samples",), default="samples")
-    ap.add_argument("--workload", default="UQ1", choices=("UQ1", "UQ3", "UQ4"))
+    ap.add_argument("--workload", default="UQ1",
+                    choices=("UQ1", "UQ2", "UQ3", "UQ4"))
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--samples", type=int, default=4096)
     ap.add_argument("--round-batch", type=int, default=8192)
+    ap.add_argument("--plan", choices=("static", "adaptive"),
+                    default="static",
+                    help="round planner: 'adaptive' budgets candidates by "
+                         "acceptance EMAs carried on the device")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="prefetched sample batches in the serve queue")
     ap.add_argument("--device", default=None,
@@ -98,7 +109,7 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     args = ap.parse_args(argv)
     sampler, _, _, build_s = build_sampler(args.workload, args.scale,
                                            args.seed, args.device,
-                                           args.round_batch)
+                                           args.round_batch, args.plan)
     sampler.sample(256)                     # warm-up call
     out = serve(sampler, args.requests, args.samples, args.round_batch,
                 args.prefetch)
@@ -106,8 +117,10 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     print(f"served {args.requests} requests x {args.samples} samples "
           f"({out['samples']} total) in {out['seconds']:.3f}s — "
           f"{out['samples_per_s']:,.0f} samples/s [backend=torch, "
-          f"device={sampler.device}; psi={out['psi']:.3f}, "
+          f"device={sampler.device}, workload={args.workload}, "
+          f"plan={args.plan}; psi={out['psi']:.3f}, "
           f"draws={out['candidate_draws']}, rejects={out['cover_rejects']}, "
+          f"pred_rejects={out['pred_rejects']}, "
           f"rounds={out['rounds_total']}, host_syncs={out['host_syncs']}, "
           f"build={build_s:.1f}s]", flush=True)
     return out

@@ -8,6 +8,10 @@ has only the port::
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_kernels_cuda.py
 
+The UQ2 cases build the §8.3 predicate workload in both modes and hold
+every flavour's tree draws through the kernels equal to its draws through
+the plain versions on the same uniforms.
+
 Without a card every test here skips.
 """
 
@@ -102,3 +106,40 @@ def test_decode_attention_on_card_equals_plain(case):
         # control: the same kernel without the softcap must fail the limit
         nocap = attention.decode_attention(*t, lt, softcap=0.0, window=win)
         assert not torch.allclose(nocap.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pred_mode", ["pushdown", "rejection"])
+def test_uq2_draws_on_card_equal_plain(pred_mode):
+    _need_card()
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.data.workloads import uq2
+    wl = uq2(scale=1.0, seed=0, pred_mode=pred_mode)
+    be = TorchBackend(wl.cat, wl.joins, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    for j in wl.joins:
+        tree = be.trees[j.name]
+        assert tree.masked == (pred_mode == "pushdown")
+        before = dict(probe.launch_counts)
+        u = torch.rand((tree.n_streams, 4096), generator=g, device="cuda")
+        k_rows, k_acc, k_ok = tree.draw(u)
+        p_rows, p_acc, p_ok = tree.draw(u, plain=True)
+        torch.cuda.synchronize()
+        for a in tree.attrs:
+            assert torch.equal(k_rows[a], p_rows[a]), (j.name, a)
+        assert torch.equal(k_acc, p_acc) and torch.equal(k_ok, p_ok)
+        launched = {k: probe.launch_counts[k] - before[k]
+                    for k in ("sorted_probe", "probe_pick")}
+        weighted = sum(not c.uniform for c in tree.node_cfgs)
+        assert launched["sorted_probe"] == weighted, j.name
+        assert launched["probe_pick"] == len(tree.node_cfgs) - weighted
+        if pred_mode == "rejection":
+            assert launched["probe_pick"] > 0
+        # pushdown: every accepted draw lies in the flavour's filtered join
+        keep = torch.ones_like(k_acc)
+        for p in j.pushed_preds:
+            keep &= torch.as_tensor(
+                p.mask({a: c.cpu().numpy() for a, c in k_rows.items()}),
+                device="cuda")
+        assert bool(keep[k_acc].all())

@@ -1,11 +1,14 @@
 """Shared helpers of the other tests/test_torch_*.py files (no tests here).
 
 * :func:`to_port` — hands a reference workload to the port as plain numpy
-  arrays through :func:`repro_torch.interop.workload_from_numpy`.
+  arrays through :func:`repro_torch.interop.workload_from_numpy`, §8.3
+  predicates and pushdown provenance included.
 * :class:`JaxReplay` — a uniform source for the port that replays the
   reference's JAX key schedule (``split(key)`` per round, then
   ``split(kround, nj+1)`` and per join ``split(k, n_streams)`` +
   ``uniform``), so the port reproduces the reference position for position.
+* :class:`JaxRecordReplay` — the same for the record engine, whose rounds
+  split ``split(key)`` into ``nj`` join keys and draw no selection slot.
 * :func:`tree_uniforms` — the ``(n_streams, batch)`` uniforms
   ``DeviceTreeJoin.draw(key, batch)`` consumes.
 """
@@ -17,15 +20,28 @@ import torch
 from repro_torch.interop import workload_from_numpy
 
 
+def _preds(preds):
+    return [(p.attr, p.op, p.value) for p in preds]
+
+
 def to_port(joins, cover=None):
     rels, specs = {}, []
-    for j in joins:
+
+    def nodes_of(j):
         nodes = []
         for n in j.nodes:
             rels[n.relation.name] = dict(n.relation.columns)
             nodes.append((n.alias, n.relation.name, n.parent,
                           tuple(n.edge_attrs), n.kind))
-        specs.append((j.name, nodes))
+        return nodes
+
+    for j in joins:
+        preds = {"pushed_preds": _preds(j.pushed_preds),
+                 "reject_preds": _preds(j.reject_preds)}
+        if j.pushdown_base is not None:
+            preds["pushdown_base"] = (j.pushdown_base.name,
+                                      nodes_of(j.pushdown_base))
+        specs.append((j.name, nodes_of(j), preds))
     if cover is None:
         order = [j.name for j in joins]
         return workload_from_numpy(rels, specs, order, {n: 1.0 for n in order})
@@ -54,6 +70,20 @@ class JaxReplay:
 
     def permutation(self, n):
         return torch.from_numpy(self.rng.permutation(n))
+
+
+class JaxRecordReplay:
+    """Uniform source replaying ``JaxRecordUnionSampler``'s round keys."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def round(self, slot, shapes):
+        assert slot == 0
+        self.key, sub = jax.random.split(self.key)
+        keys = jax.random.split(sub, len(shapes))
+        return (torch.zeros(0),
+                [tree_uniforms(k, s, b) for k, (s, b) in zip(keys, shapes)])
 
 
 def sample_multiset(ss):
