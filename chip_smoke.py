@@ -70,16 +70,32 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    ``sample(4096)`` calls (revisions, debited rows, rounds, rows in their
    home piece; a row may be credited to a later piece that holds it, since
    the lazy record learns a tuple's first piece only when it draws it);
-9. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
+9. wander join on the UQ1 state (after ``[uq3]``) — ``[walks]``: every
+   UQ1 ``TorchWalkJoin`` walks identically through ``probe_pick`` and its
+   plain version on the same root positions and uniforms (rows, float32
+   probabilities, ``ok``), ``probe_pick`` timed at the largest hop with one
+   walk batch (512 queries) beside its bound, the launches per ``observe``;
+   ``[rw-warmup]``: ``warmup(method="random_walk", device="cuda")``, its
+   time, each join's estimate within 3 half-widths of the exact EW size,
+   the piece sizes beside the histogram cover's; ``[online]``:
+   ``OnlineUnionSampler(backend="torch", phi=256, rw_batch=256)`` for two
+   ``sample(n)`` calls (rate, ψ, reuse, refreshes, backtracking, the time
+   in init, refreshes, membership probes and source refills, walk and draw
+   launches), every row in its home piece only;
+10. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
    rejection and record mode) at scale 0.05 are sampled uniformly over
    their exact unions (chi-square), on the card, and every row is in its
-   home piece and in no earlier one (record mode included).
+   home piece and in no earlier one (record mode included); ONLINE UQ1 at
+   scale 0.05 meets the reference's Algorithm-2 bar (``sample(40·U)``:
+   ≥ 0.9·U distinct rows, max count ≤ 12× the mean, reuse accepts > 0).
 
 Between 4 and 5, ``[adaptive]`` serves the same UQ1 state under
 ``plan="adaptive"`` as ``[main]`` serves it under the static plan, with its
 ``[profile]`` split and ``[main]``'s numbers beside its own.  The
 ``kernels`` rows of ``sorted_probe`` and ``probe_pick`` give their launches
-on each served path (``launches_by_path``).
+on each served path (``launches_by_path``; the online sampler's walks and
+draws and the random-walk warm-up among them), and the ``probe_pick`` row
+its time at walk width (``walk_ms`` and the ``walk_`` keys).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -116,6 +132,12 @@ I64_MAX = np.iinfo(np.int64).max
 # the full run's workload scales (UQ1 100 ≈ TPC-H SF 1); the variants
 # script probes the indexes built at these scales
 UQ1_SCALE, UQ4_SCALE = 100.0, 10.0
+# [online]'s first sample(n) (the second asks for 2n) and [rw-warmup]'s walk
+# budget per overlap term (the reference's warmup default).  The run keeps
+# each of these phases under 45 s: at n = 1024 [online] took 42.5-49.1 s on
+# an H100 (PERF.md), so it runs at half of it and [cut] says so
+ONLINE_SAMPLES, RW_MAX_WALKS = 1024, 20_000
+ONLINE_SAMPLES_RUN = ONLINE_SAMPLES // 2
 
 
 def _card_line() -> str:
@@ -190,6 +212,19 @@ def _device_us_by_op(fn, reps: int = 100, warm: int = 10) -> dict:
     for name, us in _device_events(fn, reps):
         out[name] = out.get(name, 0.0) + us / reps
     return out
+
+
+def _kernel_event_ms(fn, match: str, reps: int = 100, warm: int = 10):
+    """Mean device ms of the profiler's events whose name contains
+    ``match``, and how many such events each call produced: a per-event
+    mean stays right if the profiler drops some of a small kernel's
+    records."""
+    for _ in range(warm):
+        fn()
+    us = [t for name, t in _device_events(fn, reps) if match in name]
+    if not us:
+        raise AssertionError(f"the profiler recorded no {match} event")
+    return sum(us) / len(us) / 1e3, len(us) / reps
 
 
 def _keys_touched(keys, queries) -> int:
@@ -1044,6 +1079,276 @@ def phase_ops(sampler, seed: int):
     return [seg_row, att_row], summary
 
 
+# wander-join batch widths: the [walks] check and timing, the online
+# sampler's refinement walks (the reference's rw_batch default)
+WALK_BATCH, ONLINE_RW_BATCH = 512, 256
+
+
+def phase_walks(wl) -> dict:
+    """Every wander-join walker of ``wl`` (UQ1 at the main path's scale):
+    walks through ``probe_pick`` equal walks through its plain version on
+    the same root positions and hop uniforms (rows, float32 probabilities,
+    ``ok``: exact); ``probe_pick`` timed at the largest hop with one walk
+    batch of real queries, beside its bound; the kernels one ``observe``
+    call launches over Δ of one join and of all joins."""
+    import torch
+    from repro_torch.core.backends.torch_backend import PhiloxUniforms, _pack
+    from repro_torch.core.estimators.torch_estimator import TorchEstimator
+    from repro_torch.kernels import build, probe
+    t0 = time.perf_counter()
+    est = TorchEstimator(wl.cat, wl.joins, seed=0, batch=WALK_BATCH,
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stream = PhiloxUniforms(1, "cuda")
+    compared = 0
+    for w in est.walkers.values():
+        for _ in range(2):
+            r_pos, u = stream.walk(w.n_root, w.n_hops, WALK_BATCH)
+            k_rows, k_prob, k_ok = w.draw(r_pos, u)
+            p_rows, p_prob, p_ok = w.draw(r_pos, u, plain=True)
+            _check_equal([k_rows[a] for a in w.attrs] + [k_prob, k_ok],
+                         [p_rows[a] for a in w.attrs] + [p_prob, p_ok],
+                         f"[walks] {w.name}")
+            compared += 1
+    # the largest hop of any walker, with one batch of its real queries
+    w, i = max(((w, i) for w in est.walkers.values()
+                for i in range(w.n_hops)),
+               key=lambda t: t[0].sorted_keys[t[1]].numel())
+    r_pos, u = stream.walk(w.n_root, w.n_hops, WALK_BATCH)
+    rows, _, _ = w.draw(r_pos, u, plain=True)
+    keys = w.sorted_keys[i]
+    q = _pack(rows, w.node_edge_attrs[i], w.node_radices[i]).contiguous()
+    uq = u[i].contiguous()
+    kern = lambda: probe.probe_pick(keys, q, uq)                  # noqa: E731
+    plain = lambda: probe.probe_pick_plain(keys, q, uq)           # noqa: E731
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    _check_equal(a, b, "[walks] probe_pick at the largest hop")
+    bound_ms, bound_by = _bound(keys, q, pick=True)
+    g = build.load().repro_probe_pick_group()
+    walk_ms, events = _kernel_event_ms(kern, "probe_pick_kernel")
+    width = {"walk_ms": walk_ms, "walk_profiled_events_per_call": events,
+             "walk_summed_ms": _device_ms(kern),
+             "walk_plain_ms": _device_ms(plain),
+             "walk_call_ms": _call_ms(kern), "walk_bound_ms": bound_ms,
+             "walk_bound_by": bound_by, "walk_max_abs_err": _max_abs_err(a, b),
+             "walk_n_keys": keys.numel(), "walk_n_queries": q.numel(),
+             "walk_levels": _search_levels(keys.numel(), g),
+             "walk_node": f"{w.name}/hop {i} {w.node_edge_attrs[i]}"}
+    width["walk_bound_share"] = bound_ms / width["walk_ms"]
+    per_observe, observe_ms = {}, {}
+    for label, delta in (("one join", wl.joins[:1]), ("all joins", wl.joins)):
+        pivot = est._pivot(delta)
+        per_observe[label] = _launches_per_call(
+            "probe_pick", lambda: est.observe(delta))
+        if per_observe[label] != est.walkers[pivot.name].n_hops:
+            raise AssertionError(f"[walks] one observe over {label} launched "
+                                 f"{per_observe[label]} probe_pick, not one "
+                                 "per hop")
+        t0 = time.perf_counter()
+        for _ in range(4):
+            est.observe(delta)
+        torch.cuda.synchronize()
+        observe_ms[label] = (time.perf_counter() - t0) / 4 * 1e3
+    return {"walkers": len(est.walkers), "batches_compared": compared,
+            "batch": WALK_BATCH, "walker_build_s": build_s,
+            "hops": {n: w.n_hops for n, w in est.walkers.items()},
+            "launches_per_observe": per_observe,
+            "observe_wall_ms": observe_ms, **width}
+
+
+def phase_rw_warmup(wl, hist_cover, max_walks: int) -> dict:
+    """``warmup(method="random_walk", device="cuda")`` on ``wl`` and its
+    cover, with the launch counts set to 0 just before and read just after
+    (``probe_pick`` > 0); each join's estimated size (its accumulator at
+    the end) must lie within 3 90 %-half-widths of the exact EW size."""
+    import torch
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.join_sampler import JoinSampler
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    wr = warmup(wl.cat, wl.joins, method="random_walk", seed=0,
+                rw_max_walks=max_walks, device="cuda")
+    est = estimate_union(wr.oracle)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if launches["probe_pick"] <= 0:
+        raise AssertionError("[rw-warmup] the walks launched no probe_pick")
+    sizes = {}
+    for j in wl.joins:
+        # the accumulator after the whole warm-up (the oracle memoised the
+        # size the cover used, after the first 512 walks)
+        st = wr.aux.size_stats[j.name]
+        exact = JoinSampler(wl.cat, j).exact_acyclic_size()
+        got, hw = st.mean, st.half_width(0.90)
+        sizes[j.name] = {"estimate": got, "exact": exact, "half_width_90": hw,
+                         "walks": st.count,
+                         "cover_estimate": wr.oracle.size(j.name)}
+        if not abs(got - exact) <= 3 * hw:
+            raise AssertionError(f"[rw-warmup] {j.name}: estimate {got} is "
+                                 f"more than 3 half-widths ({hw}) from the "
+                                 f"exact size {exact}")
+    ostats = wr.aux.overlap_stats
+    return {"seconds": seconds, "rw_max_walks": max_walks,
+            "sizes": sizes,
+            "piece_sizes": {n: est.cover.piece_sizes[n]
+                            for n in est.cover.order},
+            "histogram_piece_sizes": {n: hist_cover.piece_sizes[n]
+                                      for n in hist_cover.order},
+            "union_size_cover": est.union_size_cover,
+            "overlap_terms": sum(len(k) > 1 for k in ostats),
+            # each walk batch feeds exactly one Δ accumulator
+            "walks": sum(st.count for st in ostats.values()),
+            "launches": launches}
+
+
+class _Timer:
+    """Calls and seconds of a wrapped callable (synchronised on exit)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, 0.0
+
+    def __call__(self, *a, **kw):
+        import torch
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+
+
+def phase_online(wl, calls) -> dict:
+    """``OnlineUnionSampler(backend="torch", device="cuda", phi=256,
+    rw_batch=256)`` on ``wl``: ``sample(n)`` for each n of ``calls``
+    (the accepted list is cumulative, as in the reference, so each call
+    draws the rows past the last one), with the launch counts set to 0 just
+    before the sampler is built and read after the last call; launches
+    inside the estimator's ``observe`` are the walks', the rest the
+    candidate draws'.  Every row lies in its home piece and no earlier one."""
+    import torch
+    from repro_torch.core.estimators.torch_estimator import TorchEstimator
+    from repro_torch.core.online import OnlineUnionSampler
+    from repro_torch.kernels import build
+    walk_launches = {"probe_pick": 0, "sorted_probe": 0}
+    observe = TorchEstimator.observe
+
+    def counted(self, *a, **kw):
+        before = dict(build.launch_counts)
+        try:
+            return observe(self, *a, **kw)
+        finally:
+            for k in walk_launches:
+                walk_launches[k] += build.launch_counts[k] - before[k]
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    TorchEstimator.observe = counted
+    try:
+        t0 = time.perf_counter()
+        s = OnlineUnionSampler(wl.cat, wl.joins, seed=0, backend="torch",
+                               device="cuda", phi=256,
+                               rw_batch=ONLINE_RW_BATCH)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        refresh = s._refresh_parameters = _Timer(s._refresh_parameters)
+        contains = _Timer(s.prober.contains)
+        s.prober.contains = contains
+        refills = []
+        for src in s.sources.values():
+            src._refill = _Timer(src._refill)
+            refills.append(src._refill)
+        per_call, have = [], 0
+        for n in calls:
+            t0 = time.perf_counter()
+            ss = s.sample(n)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            per_call.append({"n": n, "new_rows": n - have, "seconds": dt,
+                             "samples_per_s": (n - have) / dt})
+            have = n
+    finally:
+        TorchEstimator.observe = observe
+    launches = dict(build.launch_counts)
+    draws = {k: launches[k] - walk_launches[k] for k in walk_launches}
+    if walk_launches["probe_pick"] <= 0:
+        raise AssertionError("[online] the walks launched no probe_pick")
+    if draws["probe_pick"] <= 0 or draws["sorted_probe"] <= 0:
+        raise AssertionError(f"[online] the candidate draws launched {draws}")
+    check_membership(s, ss.rows, ss.home)
+    # one per-candidate membership probe: device ops and time
+    rows1 = {a: ss.rows[a][:1] for a in s.attrs}
+    probe_one = lambda: s.prober.contains(s.order[0], rows1)      # noqa: E731
+    ev = _device_events(probe_one, 20)
+    st = s.stats
+    sample_s = sum(c["seconds"] for c in per_call)
+    return {
+        "calls": per_call, "init_s": init_s, "sample_s": sample_s,
+        "refresh_s": refresh.seconds, "refreshes": s.refresh_count,
+        "membership_probe_s": contains.seconds,
+        "membership_probe_calls": contains.calls,
+        "source_refill_s": sum(r.seconds for r in refills),
+        "source_refills": sum(r.calls for r in refills),
+        "membership_probe_wall_ms": contains.seconds / max(contains.calls, 1)
+        * 1e3,
+        "membership_probe_device_ops": len(ev) / 20,
+        "membership_probe_device_ms": sum(us for _, us in ev) / 20 / 1e3,
+        "psi": st.psi(), "candidate_draws": st.candidate_draws,
+        "iterations": st.iterations, "reuse_accepts": st.reuse_accepts,
+        "reuse_rejects": st.reuse_rejects, "cover_rejects": st.cover_rejects,
+        "dropped_slots": st.dropped_slots,
+        "backtrack_removed": st.backtrack_removed,
+        "walks_in_size_accumulators": sum(
+            v.count for v in s.estimator.size_stats.values()),
+        "home_counts": np.bincount(ss.home, minlength=len(s.order)).tolist(),
+        "order": s.order,
+        "init_piece_sizes": s.trace.events("init")[0]["piece_sizes"],
+        "piece_sizes": {n: s.cover.piece_sizes[n] for n in s.order},
+        "last_hist_gap": (s.trace.last("refresh") or {}).get("hist_gap"),
+        "launches": launches, "walk_launches": walk_launches,
+        "draw_launches": draws, "rows_in_home_piece_only": True}
+
+
+def phase_online_reference(seed: int = 0) -> dict:
+    """ONLINE UQ1 at scale 0.05 (overlap 0.4) on the card, held to the
+    reference's bar for Algorithm 2 (``tests/test_union.py``
+    ``test_online_union_end_to_end``): ``sample(40·U)`` covers at least
+    0.9·U distinct rows, no row comes more than 12× the mean, reuse
+    accepted rows; and every row lies in its home piece only.  Online
+    output is uniform only under the refined parameters, so no strict
+    chi-square."""
+    from repro_torch.core.online import OnlineUnionSampler
+    from repro_torch.core.overlap import exact_union_size
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=0.05, overlap=0.4, seed=seed)
+    U = exact_union_size(wl.cat, wl.joins)
+    t0 = time.perf_counter()
+    s = OnlineUnionSampler(wl.cat, wl.joins, seed=12, phi=512, rw_batch=128,
+                           device="cuda")
+    ss = s.sample(40 * U)
+    dt = time.perf_counter() - t0
+    m = ss.matrix()
+    uni, counts = np.unique(m.view([("", m.dtype)] * m.shape[1]).ravel(),
+                            return_counts=True)
+    out = {"U": U, "samples": len(ss), "distinct": int(uni.shape[0]),
+           "max_over_mean": float(counts.max() / counts.mean()),
+           "reuse_accepts": ss.stats.reuse_accepts,
+           "iterations": ss.stats.iterations,
+           "dropped_slots": ss.stats.dropped_slots,
+           "piece_sizes": {n: s.cover.piece_sizes[n] for n in s.order},
+           "refreshes": s.refresh_count, "seconds": dt}
+    if not (len(ss) == 40 * U and uni.shape[0] >= 0.9 * U
+            and counts.max() <= 12 * counts.mean()
+            and ss.stats.reuse_accepts > 0):
+        raise AssertionError(f"[reference] online UQ1 misses the bar: {out}")
+    check_membership(s, ss.rows, ss.home)
+    return out
+
+
 def phase_small_reference(workload: str = "UQ1", seed: int = 0,
                           **kw) -> float:
     """UQ1 at scale 0.05 (overlap 0.4) or UQ2 at scale 0.05: the card's
@@ -1091,6 +1396,10 @@ def main(argv=None) -> int:
     ap.add_argument("--round-batch", type=int, default=8192)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--samples", type=int, default=4096)
+    ap.add_argument("--online-samples", type=int, default=ONLINE_SAMPLES_RUN,
+                    help="rows of each of [online]'s two sample() calls")
+    ap.add_argument("--rw-max-walks", type=int, default=RW_MAX_WALKS,
+                    help="[rw-warmup]'s walk budget per overlap term")
     args = ap.parse_args(argv)
 
     import torch
@@ -1103,6 +1412,12 @@ def main(argv=None) -> int:
     # full fp32 in the plain versions' products (the comparison targets)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # wall seconds of each phase, printed on the [phases] line
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
 
     # 1. device and build (one library holds every kernel)
     card = _card_line()
@@ -1123,6 +1438,7 @@ def main(argv=None) -> int:
     n_cases = phase_edge_sweeps()
     print(f"[kernels] {n_cases} edge sweeps: kernel == plain (exact)",
           flush=True)
+    mark("build + edge sweeps")
 
     rows: list = []
 
@@ -1146,6 +1462,7 @@ def main(argv=None) -> int:
         r["launches_by_path"] = {"UQ1 static": r["launches"]}
     print("[main] " + json.dumps(main_out), flush=True)
     print("[profile] " + json.dumps(prof), flush=True)
+    mark("main")
 
     def path_launches(label, out):
         for r in rows:
@@ -1190,6 +1507,7 @@ def main(argv=None) -> int:
     del ad_sampler
     path_launches("UQ1 adaptive", ad_out)
     print("[adaptive] " + json.dumps(ad_out), flush=True)
+    mark("adaptive")
 
     # 6. the kernel entry point; segdegree and decode attention are reached
     # only through it (the UQ1 path launches neither)
@@ -1197,11 +1515,12 @@ def main(argv=None) -> int:
     print(f"[ops] edge sweeps, kernel vs plain: {json.dumps(sweeps)}",
           flush=True)
     ops_rows, ops_out = phase_ops(main_sampler, seed=0)
-    del main_sampler, wl1, est1
+    del main_sampler
     for r in ops_rows:
         r["main_path_launches"] = main_out["launches"][r["name"]]
     rows.extend(ops_rows)
     print("[ops] " + json.dumps(ops_out), flush=True)
+    mark("ops")
 
     # 7. residual path
     # UQ4 has no weighted node: its tree and residual hops all run probe_pick
@@ -1214,11 +1533,38 @@ def main(argv=None) -> int:
         res_out.pop(k)
     path_launches("UQ4 residual", res_out)
     print("[residual] " + json.dumps(res_out), flush=True)
+    mark("residual")
 
     # 8. a branching tree
     uq3_out = phase_branching_tree(args.scale, args.round_batch)
     print("[uq3] draws through the kernels == plain versions (exact): "
           + json.dumps(uq3_out), flush=True)
+    mark("uq3")
+
+    # 9. wander join on the UQ1 state: the walks' hops, the random-walk
+    # warm-up and ONLINE-UNION (Algorithm 2), all through probe_pick
+    probe_row = next(r for r in rows if r["name"] == "sorted_probe")
+    walks_out = phase_walks(wl1)
+    pick_row.update({k: v for k, v in walks_out.items()
+                     if k.startswith("walk_")})
+    print("[walks] " + json.dumps(walks_out), flush=True)
+    mark("walks")
+    rw_out = phase_rw_warmup(wl1, est1.cover, args.rw_max_walks)
+    pick_row["launches_by_path"]["UQ1 rw-warmup"] = \
+        rw_out["launches"]["probe_pick"]
+    print("[rw-warmup] " + json.dumps(rw_out), flush=True)
+    mark("rw-warmup")
+    online_out = phase_online(wl1, (args.online_samples,
+                                    2 * args.online_samples))
+    pick_row["launches_by_path"]["UQ1 online walks"] = \
+        online_out["walk_launches"]["probe_pick"]
+    pick_row["launches_by_path"]["UQ1 online draws"] = \
+        online_out["draw_launches"]["probe_pick"]
+    probe_row["launches_by_path"]["UQ1 online draws"] = \
+        online_out["draw_launches"]["sorted_probe"]
+    print("[online] " + json.dumps(online_out), flush=True)
+    mark("online")
+    del wl1, est1
 
     # 9. §8.3 predicates: UQ2 pushdown (masked base indexes shared by the
     # three flavours; every node weighted, so sorted_probe only) ...
@@ -1259,6 +1605,7 @@ def main(argv=None) -> int:
                                                        "est"))
     path_launches("UQ2 pushdown", uq2_out)
     print("[uq2] " + json.dumps(uq2_out), flush=True)
+    mark("uq2")
 
     # ... the same state under plan="adaptive", served and checked like
     # [uq2], then engine calls in turns with the static plan ...
@@ -1280,6 +1627,7 @@ def main(argv=None) -> int:
     del uq2_ad, uq2_static
     path_launches("UQ2 adaptive", uq2_ad_out)
     print("[uq2-adaptive] " + json.dumps(uq2_ad_out), flush=True)
+    mark("uq2-adaptive")
 
     # ... the serve CLI as a user runs it (histogram warm-up, adaptive; its
     # cover serves JN only, see uq2_exact) ...
@@ -1295,6 +1643,7 @@ def main(argv=None) -> int:
         raise AssertionError("[uq2-cli] the CLI launched no sorted_probe")
     path_launches("UQ2 CLI adaptive", cli_out)
     print("[uq2-cli] " + json.dumps(cli_out), flush=True)
+    mark("uq2-cli")
 
     # ... UQ2 rejection (nation and supplier weighted, partsupp and part
     # uniform: both probes; in-round predicate masks) ...
@@ -1310,12 +1659,14 @@ def main(argv=None) -> int:
         raise AssertionError("[uq2-rejection] no predicate rejections")
     path_launches("UQ2 rejection", rej_out)
     print("[uq2-rejection] " + json.dumps(rej_out), flush=True)
+    mark("uq2-rejection")
 
     # ... and record-mode membership over UQ2 pushdown
     rec_out = phase_record(wl2, est2, args.round_batch, 4096)
     del wl2, est2
     path_launches("UQ2 record", rec_out)
     print("[record] " + json.dumps(rec_out), flush=True)
+    mark("record")
 
     # 10. small-input reference on the card
     ps = {"UQ1 static": phase_small_reference(),
@@ -1326,10 +1677,27 @@ def main(argv=None) -> int:
           "UQ2 record": phase_small_reference("UQ2", membership="record")}
     print("[reference] UQ1 and UQ2 at scale 0.05 uniform over the exact "
           "union on the card: chi-square p " + json.dumps(ps), flush=True)
+    mark("reference")
+    online_ref = phase_online_reference()
+    print("[reference] ONLINE UQ1 at scale 0.05 on the card, the "
+          "reference's Algorithm-2 bar: " + json.dumps(online_ref), flush=True)
+    mark("reference online")
 
-    if args.scale != UQ1_SCALE or args.uq4_scale != UQ4_SCALE:
-        print(f"[cut] UQ1 scale {args.scale} (full: {UQ1_SCALE:g}), UQ4 "
-              f"scale {args.uq4_scale} (full: {UQ4_SCALE:g})", flush=True)
+    cuts = [f"{what} {got:g} (full: {full:g})" for what, got, full in (
+        ("UQ1 scale", args.scale, UQ1_SCALE),
+        ("UQ4 scale", args.uq4_scale, UQ4_SCALE),
+        ("[online] sample(n)", args.online_samples, ONLINE_SAMPLES),
+        ("[rw-warmup] rw_max_walks", args.rw_max_walks, RW_MAX_WALKS))
+        if got != full]
+    if cuts:
+        print("[cut] " + ", ".join(cuts), flush=True)
+    print("[phases] wall seconds: " + json.dumps(
+        {b[0]: round(b[1] - a[1], 2) for a, b in zip(marks, marks[1:])}
+        | {"total": round(marks[-1][1] - marks[0][1], 2)})
+        + f"; 'reference online' is a standing cost: "
+        f"{online_ref['dropped_slots']} of its {online_ref['iterations']} "
+        "iterations are dropped slots (an empty join that keeps its "
+        "histogram size in Algorithm 2)", flush=True)
     print(f"[profiler] sessions with no device activity, run again: "
           f"{EMPTY_TRACES[0]}", flush=True)
     print(f"card: {card}", flush=True)

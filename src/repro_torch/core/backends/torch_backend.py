@@ -27,6 +27,9 @@ bottom-up:
   is exact; ``sample(n)`` adds one device→host fetch of the result.
   :class:`TorchRecordUnionSampler` keeps the lazy ``orig_join`` record as a
   sorted-fingerprint multiset instead, with the same cadence.
+* :class:`TorchCandidateSource` — fixed-width device rounds of one tree
+  join, buffered on the host and served in slices to the host-driven
+  ONLINE-UNION sampler (``TorchBackend.source``).
 
 Random numbers come from a **uniform source**: :class:`PhiloxUniforms`
 (a ``torch.Generator`` on the device) in production; tests pass an object
@@ -510,14 +513,17 @@ class TorchMembershipOracle:
 
 
 class TorchBackend:
-    """Device-resident engine state: tree joins + membership indexes."""
+    """Device-resident engine state: tree joins, membership indexes and
+    per-join candidate sources."""
 
     name = "torch"
 
-    def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], device=None):
+    def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], device=None,
+                 seed: int = 0):
         self.device = resolve_device(device)
         self.cat = cat
         self.joins = list(joins)
+        self.seed = int(seed)
         schemas = {tuple(sorted(j.output_attrs)) for j in self.joins}
         if len(schemas) > 1:
             raise ValueError(
@@ -532,6 +538,7 @@ class TorchBackend:
                                  f"on the device: {e}") from e
         self._members: Optional[Dict[str, TorchJoinMembership]] = None
         self._oracle: Optional[TorchMembershipOracle] = None
+        self._sources: Dict[str, TorchCandidateSource] = {}
 
     @property
     def members(self) -> Dict[str, TorchJoinMembership]:
@@ -546,8 +553,104 @@ class TorchBackend:
                                                  self.device)
         return self._oracle
 
+    def source(self, join_name: str, uniforms=None) -> "TorchCandidateSource":
+        """The candidate source of one join, built on first use: join ``i``'s
+        Philox stream is seeded ``seed + i`` (the reference's seeding);
+        ``uniforms`` replaces it."""
+        src = self._sources.get(join_name)
+        if src is None:
+            i = [j.name for j in self.joins].index(join_name)
+            src = self._sources[join_name] = TorchCandidateSource(
+                self.trees[join_name], seed=self.seed + i, uniforms=uniforms)
+        return src
+
     def supports_fused_rounds(self) -> bool:
         return True
+
+
+class TorchCandidateSource:
+    """Candidate source over a :class:`TorchTreeJoin` for the host-driven
+    samplers (``OnlineUnionSampler``).
+
+    Device rounds are fixed-width (``device_batch`` draws each); a round's
+    accepted rows come to the host in one copy and are served in slices, so
+    small requests (the online sampler asks for one row at a time) draw
+    from the remainder of the last round.  ``draws`` counts one
+    ``device_batch`` per round; §8.2 residual rejections are counted as
+    ``walk_ok - accept`` and drained by :meth:`pop_residual_rejects`.  The
+    source carries its own uniform stream (``uniforms.tree(streams,
+    batch)``)."""
+
+    def __init__(self, tree: TorchTreeJoin, seed: int = 0,
+                 device_batch: int = 4096, uniforms=None):
+        self.join_name = tree.name
+        self.tree = tree
+        self.attrs = tree.attrs
+        self.uniforms = (uniforms if uniforms is not None
+                         else PhiloxUniforms(seed, tree.device))
+        self._batch = int(device_batch)
+        self._buf: Optional[Dict[str, np.ndarray]] = None
+        self._buf_pos = 0
+        self._res_rej = 0
+
+    def is_empty(self) -> bool:
+        return self.tree.is_empty()
+
+    def pop_residual_rejects(self) -> int:
+        """Residual (§8.2 cyclic) rejections since the last pop."""
+        n, self._res_rej = self._res_rej, 0
+        return n
+
+    def _buffered(self) -> int:
+        return 0 if self._buf is None else self._buf[self.attrs[0]].shape[0]
+
+    def _refill(self) -> int:
+        """One device round into the buffer; returns rows banked."""
+        rows, ok, walk_ok = self.tree.draw(
+            self.uniforms.tree(self.tree.n_streams, self._batch))
+        mat = torch.stack([rows[a] for a in self.attrs]
+                          + [ok.to(torch.int32), walk_ok.to(torch.int32)],
+                          dim=1).cpu().numpy()
+        ok_h = mat[:, -2].astype(bool)
+        if self.tree.has_residual:
+            self._res_rej += int(mat[:, -1].sum() - ok_h.sum())
+        idx = np.nonzero(ok_h)[0]
+        self._buf = {a: mat[idx, i].astype(np.int64)
+                     for i, a in enumerate(self.attrs)}
+        self._buf_pos = 0
+        return int(idx.shape[0])
+
+    def draw(self, count: int) -> Tuple[Dict[str, np.ndarray], int]:
+        from ..join_sampler import EmptyJoinError
+        if self.is_empty():
+            raise EmptyJoinError(f"join {self.join_name!r} is empty")
+        if self._buf is not None and self._buf_pos + count <= self._buffered():
+            lo, hi = self._buf_pos, self._buf_pos + count
+            self._buf_pos = hi
+            return {a: c[lo:hi] for a, c in self._buf.items()}, 0
+        got: List[Dict[str, np.ndarray]] = []
+        draws = have = 0
+        # the round budget scales with the request (fixed-width rounds)
+        max_rounds = 1000 + 20 * (count // self._batch + 1)
+        for _ in range(max_rounds):
+            if self._buf is None or self._buf_pos >= self._buffered():
+                draws += self._batch
+                if self._refill() == 0:
+                    continue
+            lo = self._buf_pos
+            hi = min(lo + count - have, self._buffered())
+            got.append({a: c[lo:hi] for a, c in self._buf.items()})
+            self._buf_pos = hi
+            have += hi - lo
+            if have >= count:
+                break
+        else:
+            raise RuntimeError(f"TorchCandidateSource({self.join_name}): "
+                               "round budget exhausted")
+        if len(got) == 1:
+            return got[0], draws
+        return ({a: np.concatenate([g[a] for g in got]) for a in self.attrs},
+                draws)
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +680,20 @@ class PhiloxUniforms:
 
     def permutation(self, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=self.generator, device=self.device)
+
+    def tree(self, streams: int, batch: int) -> torch.Tensor:
+        """``(streams, batch)`` uniforms of one candidate-source round."""
+        return torch.rand((streams, batch), generator=self.generator,
+                          device=self.device)
+
+    def walk(self, n_root: int, n_hops: int, batch: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One wander-join batch: root positions ``(batch,)`` int64 in
+        ``[0, max(n_root, 1))`` and ``(n_hops, batch)`` hop uniforms."""
+        r_pos = torch.randint(0, max(int(n_root), 1), (batch,),
+                              generator=self.generator, device=self.device)
+        return r_pos, torch.rand((n_hops, batch), generator=self.generator,
+                                 device=self.device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,22 @@
 """Facade: warm-up → parameter oracle → cover (paper Fig. overview).
 
-Port copy of ``repro.core.framework`` for the two host estimation methods of
-this slice.  ``warmup(cat, joins, method)`` builds the
-:class:`OverlapOracle` backing both Theorem 3 (union size, Eq. 1
+Port copy of ``repro.core.framework``.  ``warmup(cat, joins, method)``
+builds the :class:`OverlapOracle` backing both Theorem 3 (union size, Eq. 1
 diagnostics) and the cover sizes of Algorithm 1:
 
-* ``exact``      — FULLJOIN ground truth (tests / small data only),
-* ``histogram``  — §5 degree-statistics bounds (decentralised setting).
+* ``exact``        — FULLJOIN ground truth (tests / small data only),
+* ``histogram``    — §5 degree-statistics bounds (decentralised setting),
+  on the host,
+* ``random_walk``  — §6 wander-join estimates (centralised setting): walks,
+  membership probes and HT accumulation on the card
+  (:class:`~repro_torch.core.estimators.torch_estimator.TorchEstimator`).
 
-Both handle cyclic (§8.2 skeleton+residual) members: ``exact`` counts
-distinct tuples of the materialised join, and the histogram algebra treats
-residual edges as links to their earlier relations.  Joins with §8.3
-rejection predicates are counted after the filter (``exact``) or scaled by
-their estimated selectivity (``histogram``).  The random-walk method waits
-for the port of the estimators.
+All three handle cyclic (§8.2 skeleton+residual) members: ``exact`` counts
+distinct tuples of the materialised join, the histogram algebra treats
+residual edges as links to their earlier relations, and wander-join walks
+hop residual edges like any other.  Joins with §8.3 rejection predicates
+are counted after the filter (``exact``) or scaled by their estimated
+selectivity (``histogram``, ``random_walk``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ class WarmupResult:
     oracle: OverlapOracle
     method: str
     seconds: float
-    aux: object = None  # HistogramOverlap instance (histogram method)
+    aux: object = None  # HistogramOverlap / TorchEstimator instance
 
 
 def _exact_size_fn(cat: Catalog):
@@ -51,9 +54,17 @@ def _exact_size_fn(cat: Catalog):
     return f
 
 
-def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact"
-           ) -> WarmupResult:
-    """Build the parameter oracle on the host (numpy estimation)."""
+def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact",
+           seed: int = 0, rw_batch: int = 512,
+           rw_rel_halfwidth: float = 0.25,
+           rw_max_walks: int = 20_000,
+           hist_mode: str = "max", device=None,
+           uniforms=None) -> WarmupResult:
+    """Build the parameter oracle.  ``exact`` and ``histogram`` run on the
+    host; ``random_walk`` runs its walks on ``device`` (``None`` means the
+    card and raises without one), seeded from ``seed`` unless ``uniforms``
+    replaces the walk stream.  The oracle is lazy: the walks run when the
+    cover or the k-overlaps ask for an estimate."""
     joins = list(joins)
     t0 = time.perf_counter()
     if method == "exact":
@@ -61,7 +72,7 @@ def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact"
                                _exact_size_fn(cat), joins)
         aux = None
     elif method == "histogram":
-        hist = HistogramOverlap(cat, joins)
+        hist = HistogramOverlap(cat, joins, mode=hist_mode)
         est_fn = hist.estimate
         if any(j.reject_preds for j in joins):
             # §8.3 rejection predicates: overlaps of filtered joins shrink by
@@ -71,9 +82,23 @@ def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact"
             est_fn = scaled_overlap_estimate(hist.estimate)
         oracle = OverlapOracle(est_fn, lambda j: olken_bound(cat, j), joins)
         aux = hist
+    elif method == "random_walk":
+        from .estimators import get_estimator
+        rw = get_estimator("torch", cat, joins, seed=seed, batch=rw_batch,
+                           device=device, uniforms=uniforms)
+        est_fn = (lambda d: rw.estimate(d, rel_halfwidth=rw_rel_halfwidth,
+                                        max_walks=rw_max_walks).value)
+        size_fn = rw.join_size
+        if any(j.reject_preds for j in joins):
+            # walks sample the unfiltered joins; scale both estimates by the
+            # predicate selectivity (membership probes are already pred-aware)
+            from .predicates import scaled_overlap_estimate, scaled_size_fn
+            est_fn = scaled_overlap_estimate(est_fn)
+            size_fn = scaled_size_fn(size_fn)
+        oracle = OverlapOracle(est_fn, size_fn, joins)
+        aux = rw
     else:
-        raise ValueError(f"unknown warmup method {method!r} "
-                         "(expected 'exact' or 'histogram')")
+        raise ValueError(f"unknown warmup method {method!r}")
     return WarmupResult(oracle, method, time.perf_counter() - t0, aux)
 
 

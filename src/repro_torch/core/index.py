@@ -12,7 +12,7 @@ them with the CUDA kernels of :mod:`repro_torch.kernels.probe`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -35,6 +35,8 @@ class SortedIndex:
     key_attrs: Tuple[str, ...]
     perm: np.ndarray          # (n,) int64 row ids in sorted key order
     sorted_vals: np.ndarray   # (n,) int64 sorted keys
+    _max_degree: Optional[int] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     def ranges(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Per-query [lo, hi) positions in the sorted order."""
@@ -57,10 +59,12 @@ class SortedIndex:
         return vals, counts
 
     def max_degree(self) -> int:
-        if self.nrows == 0:
-            return 0
-        _, counts = self.value_counts()
-        return int(counts.max())
+        """Largest per-value degree, computed once: the estimators' pivot
+        rule reads it (through ``olken_bound``) on every walk batch."""
+        if self._max_degree is None:
+            self._max_degree = (0 if self.nrows == 0
+                                else int(self.value_counts()[1].max()))
+        return self._max_degree
 
 
 def build_index(rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:

@@ -1,7 +1,8 @@
 """Overlap-size estimation |O_Δ| for a set Δ of joins.
 
-Port copy of ``repro.core.overlap`` with the two host instantiations this
-slice needs (the random-walk estimator is not ported yet):
+Port copy of ``repro.core.overlap`` with its two host instantiations (the
+random-walk estimator runs on the card:
+:class:`~repro_torch.core.estimators.torch_estimator.TorchEstimator`):
 
 * :func:`exact_overlap`       — materialise the joins and intersect distinct
   tuple sets (the FULLJOIN ground truth; exponential-cost baseline).
@@ -79,9 +80,14 @@ def exact_join_size_distinct(cat: Catalog, join: JoinSpec,
 class HistogramOverlap:
     """Degree-statistics upper bound on |O_Δ| (decentralised setting)."""
 
-    def __init__(self, cat: Catalog, joins: Sequence[JoinSpec]):
+    def __init__(self, cat: Catalog, joins: Sequence[JoinSpec],
+                 mode: str = "max", cap_with_join_bound: bool = True):
+        if mode not in ("max", "avg"):
+            raise ValueError("mode must be 'max' (bound) or 'avg' (refined estimate)")
         self.cat = cat
         self.joins = list(joins)
+        self.mode = mode
+        self.cap = cap_with_join_bound
         self.plans: Dict[str, SplitPlan] = {
             p.join.name: p for p in split_plans(joins)
         }
@@ -112,18 +118,18 @@ class HistogramOverlap:
                 return 1.0  # fake join — row identity continues
             rel = plan.join.node(pair.source_alias).relation
             st = self.cat.stats(rel, [lead])
-            return float(st.max_degree)
+            return float(st.max_degree if self.mode == "max" else max(st.avg_degree, 1e-12))
         # path fallback: product of per-hop degrees along the connecting path
         m = 1.0
         for alias in pair.path_aliases:
             rel = plan.join.node(alias).relation
             held = [a for a in pair.attrs if a in rel.attrs]
             st = self.cat.stats(rel, [held[0] if held else rel.attrs[0]])
-            m *= float(st.max_degree)
+            m *= float(st.max_degree if self.mode == "max" else max(st.avg_degree, 1e-12))
         return m
 
     def estimate(self, delta: Sequence[JoinSpec]) -> float:
-        """Upper bound on |O_Δ|."""
+        """Upper bound (mode='max') or refined estimate (mode='avg') of |O_Δ|."""
         delta = list(delta)
         if len(delta) == 1:
             only = delta[0]
@@ -168,8 +174,9 @@ class HistogramOverlap:
         bound = k1
         for i in range(2, k):
             bound *= min(self._pair_multiplier(plan, i) for plan in plans)
-        # an overlap is never larger than its smallest join
-        bound = min(bound, min(self._join_bounds[j.name] for j in delta))
+        if self.cap:
+            # an overlap is never larger than its smallest join
+            bound = min(bound, min(self._join_bounds[j.name] for j in delta))
         return float(bound)
 
     def join_size_bound(self, join: JoinSpec) -> float:

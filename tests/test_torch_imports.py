@@ -36,10 +36,13 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device",
-                                   "ops"])
+                                   "ops", "online", "estimator",
+                                   "rw_warmup"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.core.estimators import TorchEstimator
     from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.online import OnlineUnionSampler
     from repro_torch.core.union_sampler import SetUnionSampler
     from repro_torch.data.workloads import uq1
     from repro_torch.device import resolve_device
@@ -57,6 +60,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             TorchBackend(wl.cat, wl.joins)
         elif entry == "ops":
             ops.segdegree(keys)
+        elif entry == "online":
+            OnlineUnionSampler(wl.cat, wl.joins)
+        elif entry == "estimator":
+            TorchEstimator(wl.cat, wl.joins)
+        elif entry == "rw_warmup":
+            warmup(wl.cat, wl.joins, method="random_walk")
         else:
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"

@@ -10,7 +10,8 @@ has only the port::
 
 The UQ2 cases build the §8.3 predicate workload in both modes and hold
 every flavour's tree draws through the kernels equal to its draws through
-the plain versions on the same uniforms.
+the plain versions on the same uniforms; the walk case holds every UQ1
+wander-join walk through ``probe_pick`` equal to the plain walk.
 
 Without a card every test here skips.
 """
@@ -143,3 +144,28 @@ def test_uq2_draws_on_card_equal_plain(pred_mode):
                 p.mask({a: c.cpu().numpy() for a, c in k_rows.items()}),
                 device="cuda")
         assert bool(keep[k_acc].all())
+
+
+@pytest.mark.cuda
+def test_uq1_walks_on_card_equal_plain():
+    """Every UQ1 wander-join walk hop runs ``probe_pick``: kernel walks equal
+    plain walks on the same root positions and uniforms (rows, float32
+    probabilities, ``ok``), and the hops launch one kernel each."""
+    _need_card()
+    from repro_torch.core.backends.torch_backend import PhiloxUniforms
+    from repro_torch.core.estimators.torch_estimator import TorchWalkJoin
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=0.05, overlap=0.4, seed=0)
+    stream = PhiloxUniforms(0, "cuda")
+    for j in wl.joins:
+        walker = TorchWalkJoin(wl.cat, j, device="cuda")
+        r_pos, u = stream.walk(walker.n_root, walker.n_hops, 512)
+        before = probe.launch_counts["probe_pick"]
+        k_rows, k_prob, k_ok = walker.draw(r_pos, u)
+        launched = probe.launch_counts["probe_pick"] - before
+        p_rows, p_prob, p_ok = walker.draw(r_pos, u, plain=True)
+        torch.cuda.synchronize()
+        assert launched == walker.n_hops, j.name
+        for a in walker.attrs:
+            assert torch.equal(k_rows[a], p_rows[a]), (j.name, a)
+        assert torch.equal(k_prob, p_prob) and torch.equal(k_ok, p_ok)

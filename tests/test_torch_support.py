@@ -11,6 +11,14 @@
   split ``split(key)`` into ``nj`` join keys and draw no selection slot.
 * :func:`tree_uniforms` — the ``(n_streams, batch)`` uniforms
   ``DeviceTreeJoin.draw(key, batch)`` consumes.
+* :class:`JaxWalkReplay` — the walk stream of ``JaxEstimator.observe``:
+  ``split(key)`` per walk batch, then ``split(sub, n_hops+1)`` into the root
+  ``randint`` and one ``uniform`` per hop (``DeviceWalkJoin.draw``).
+* :class:`JaxSourceReplay` — the rounds of ``JaxCandidateSource``:
+  ``split(key)`` per refill, then the ``DeviceTreeJoin.draw`` schedule.
+* :class:`JaxOnlineReplay` — both for ``OnlineUnionSampler``: the
+  estimator's walks from ``seed + 1`` and join ``i``'s source from
+  ``seed + i``, as the reference seeds them.
 """
 
 import jax
@@ -84,6 +92,47 @@ class JaxRecordReplay:
         keys = jax.random.split(sub, len(shapes))
         return (torch.zeros(0),
                 [tree_uniforms(k, s, b) for k, (s, b) in zip(keys, shapes)])
+
+
+class JaxWalkReplay:
+    """Walk stream replaying ``JaxEstimator``'s keys (``walk`` method)."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def walk(self, n_root, n_hops, batch):
+        self.key, sub = jax.random.split(self.key)
+        keys = jax.random.split(sub, n_hops + 1)
+        r_pos = np.asarray(jax.random.randint(keys[0], (batch,), 0,
+                                              max(n_root, 1)))
+        u = np.stack([np.asarray(jax.random.uniform(k, (batch,)))
+                      for k in keys[1:]]) if n_hops else \
+            np.zeros((0, batch), np.float32)
+        return (torch.from_numpy(r_pos.astype(np.int64)),
+                torch.from_numpy(u.astype(np.float32)))
+
+
+class JaxSourceReplay:
+    """Round stream replaying ``JaxCandidateSource``'s keys (``tree``)."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def tree(self, streams, batch):
+        self.key, sub = jax.random.split(self.key)
+        return tree_uniforms(sub, streams, batch)
+
+
+class JaxOnlineReplay(JaxWalkReplay):
+    """``OnlineUnionSampler``'s streams: walks from ``seed + 1``, the source
+    of join ``i`` from ``seed + i``."""
+
+    def __init__(self, seed):
+        super().__init__(seed + 1)
+        self.seed = seed
+
+    def source(self, i):
+        return JaxSourceReplay(self.seed + i)
 
 
 def sample_multiset(ss):
