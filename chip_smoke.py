@@ -82,7 +82,33 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    ``sample(n)`` calls (rate, ψ, reuse, refreshes, backtracking, the time
    in init, refreshes, membership probes and source refills, walk and draw
    launches), every row in its home piece only;
-10. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
+10. baselines, façades and the sharded engine on the UQ1 state (after
+   ``[online]``; one ``TorchBackend`` serves the first four, each with the
+   launch counts set to 0 just before its path and read just after, and
+   both probes must launch on every path) — ``[baselines]``:
+   ``BernoulliUnionSampler.sample(8192)`` over the exact EW join sizes and
+   ``[rw-warmup]``'s union estimate (rows in their home join and no earlier
+   one) and ``DisjointUnionSampler.sample(65536)`` (rows in their home
+   join, home shares within 6σ + 0.002 of ``|J_j|/Σ|J|``), then Bernoulli
+   at UQ1 scale 0.05 against the reference's bar (80·U rows, chi-square
+   p > 1e-3); ``[chain]``: ``TorchChainSampler`` over UQ1_J0, kernel draws
+   equal to plain draws, the rate of ``sample_uniform(65536)``;
+   ``[replicas]``: two ``seed-split`` ``DistributedUnionSampler`` replicas
+   in one ``SampleService`` (8 × 4096, rows in their home piece only), a
+   ``hash-partition`` rank 0 of 2 (every row in partition 0) and
+   ``merge_streams``; ``[sharded]``: ``SetUnionSampler(mesh=
+   make_sampler_mesh(world=1))`` and the adaptive ``ShardedUnionSampler``
+   on its ``ShardedCatalog``, three ``sample(8192)`` each, bit-equal to the
+   unsharded engine with the same seed (rows, homes, fingerprints,
+   ``SamplerStats``), and both engines' rates in turns;
+   ``[sharded-est]``: ``warmup(method="random_walk", mesh=world 1)`` equal
+   to ``[rw-warmup]`` (sizes, half-widths, walks, the cover's union);
+   ``[shards-cli]``: the serve CLI with ``--shards 1`` (UQ1 at
+   ``SHARDS_SCALE``, 4 requests); ``[sharded-w2]``: two processes on the
+   one card in a gloo group (NCCL refuses two ranks on one device), UQ1 at
+   ``SHARDS_SCALE`` with ``shards=2``, 4 × 4096 on each rank: the same
+   stream on both ranks (a SHA-256 of the rows), rows in their home piece;
+11. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
    rejection and record mode) at scale 0.05 are sampled uniformly over
    their exact unions (chi-square), on the card, and every row is in its
    home piece and in no earlier one (record mode included); ONLINE UQ1 at
@@ -94,7 +120,9 @@ Between 4 and 5, ``[adaptive]`` serves the same UQ1 state under
 ``[profile]`` split and ``[main]``'s numbers beside its own.  The
 ``kernels`` rows of ``sorted_probe`` and ``probe_pick`` give their launches
 on each served path (``launches_by_path``; the online sampler's walks and
-draws and the random-walk warm-up among them), and the ``probe_pick`` row
+draws, the random-walk warm-up, the baselines, the chain façade, the
+replicas, the sharded engine and its warm-up, the ``--shards 1`` CLI and
+rank 0 of ``[sharded-w2]`` among them), and the ``probe_pick`` row
 its time at walk width (``walk_ms`` and the ``walk_`` keys).
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -138,6 +166,9 @@ UQ1_SCALE, UQ4_SCALE = 100.0, 10.0
 # an H100 (PERF.md), so it runs at half of it and [cut] says so
 ONLINE_SAMPLES, RW_MAX_WALKS = 1024, 20_000
 ONLINE_SAMPLES_RUN = ONLINE_SAMPLES // 2
+# UQ1's scale for the serve CLI with --shards 1 and the two gloo ranks of
+# [sharded-w2] (the quick run's scale): [sharded] serves the full scale
+SHARDS_SCALE = 1.0
 
 
 def _card_line() -> str:
@@ -556,16 +587,20 @@ def _passes(preds, rows) -> np.ndarray:
     return keep
 
 
-def _membership_matrix(sampler, rows) -> np.ndarray:
-    """(rows, pieces) membership by the definition of a join: a row is in a
+def _join_membership(joins, rows) -> np.ndarray:
+    """(rows, joins) membership by the definition of a join: a row is in a
     join iff its projection onto every base relation of the join is a row
     of that relation (a pushdown's relations are the filtered ones) and it
     passes the join's rejection predicates."""
-    by_name = {j.name: j for j in sampler.joins}
     return np.stack([np.logical_and.reduce(
-        [_rows_in_relation(n.relation, rows) for n in by_name[name].nodes]
-        + [_passes(by_name[name].reject_preds, rows)])
-        for name in sampler.order], axis=1)
+        [_rows_in_relation(n.relation, rows) for n in j.nodes]
+        + [_passes(j.reject_preds, rows)]) for j in joins], axis=1)
+
+
+def _membership_matrix(sampler, rows) -> np.ndarray:
+    """(rows, pieces) membership in cover order (:func:`_join_membership`)."""
+    by_name = {j.name: j for j in sampler.joins}
+    return _join_membership([by_name[n] for n in sampler.order], rows)
 
 
 def check_membership(sampler, rows, home) -> None:
@@ -1355,7 +1390,6 @@ def phase_small_reference(workload: str = "UQ1", seed: int = 0,
     samples are uniform over the exact union (chi-square p-value returned;
     must exceed 1e-3).  ``kw`` goes to ``SetUnionSampler`` (``plan``,
     ``membership``) or, as ``pred_mode``, to UQ2."""
-    from scipy import stats as sps
     from repro_torch.core.framework import estimate_union, warmup
     from repro_torch.core.overlap import exact_union_size
     from repro_torch.core.union_sampler import SetUnionSampler
@@ -1369,16 +1403,8 @@ def phase_small_reference(workload: str = "UQ1", seed: int = 0,
     U = exact_union_size(wl.cat, wl.joins)
     s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=7, device="cuda",
                         round_batch=1024, **kw)
-    N = 200 * U
-    ss = s.sample(N)
-    m = ss.matrix()
-    uni, counts = np.unique(m.view([("", m.dtype)] * m.shape[1]).ravel(),
-                            return_counts=True)
-    if uni.shape[0] > U:
-        raise AssertionError("sampled tuples outside the union")
-    exp = N / U
-    chi2 = float(((counts - exp) ** 2 / exp).sum()) + (U - uni.shape[0]) * exp
-    p = float(1 - sps.chi2.cdf(chi2, df=U - 1))
+    ss = s.sample(200 * U)
+    p = _chi2_p(ss.matrix(), U)
     # strict homes in record mode too: at N = 200·U every tuple's first
     # piece has drawn it before the call settles
     check_membership(s, ss.rows, ss.home)
@@ -1386,6 +1412,393 @@ def phase_small_reference(workload: str = "UQ1", seed: int = 0,
         raise AssertionError(f"{workload} {kw} small-input chi-square failed "
                              f"(p={p})")
     return p
+
+
+def _launches() -> dict:
+    """The shared kernel launch counts, after a device synchronise."""
+    import torch
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    return dict(build.launch_counts)
+
+
+def _require_probes(label: str, launches: dict) -> None:
+    for k in ("sorted_probe", "probe_pick"):
+        if launches[k] <= 0:
+            raise AssertionError(f"[{label}] kernel {k} was not launched")
+
+
+def _check_homes(label: str, joins, rows, home, canonical: bool) -> None:
+    """Each row lies in its home join and, if ``canonical``, in no earlier
+    join (host lookups in the base relations, sharing no code with the
+    engine)."""
+    mm = _join_membership(joins, rows)
+    if not mm[np.arange(home.size), home].all():
+        raise AssertionError(f"[{label}] a row is not in its home join")
+    if canonical and not np.array_equal(np.argmax(mm, axis=1), home):
+        raise AssertionError(f"[{label}] a row is credited to a later join "
+                             "than its first")
+
+
+def _chi2_p(mat, U) -> float:
+    """Chi-square p-value of ``mat``'s rows against the uniform law over a
+    union of ``U`` tuples (raises on a tuple outside it)."""
+    from scipy import stats as sps
+    uni, counts = np.unique(mat.view([("", mat.dtype)] * mat.shape[1]).ravel(),
+                            return_counts=True)
+    if uni.shape[0] > U:
+        raise AssertionError("sampled tuples outside the union")
+    exp = mat.shape[0] / U
+    chi2 = float(((counts - exp) ** 2 / exp).sum()) + (U - uni.shape[0]) * exp
+    return float(1 - sps.chi2.cdf(chi2, df=U - 1))
+
+
+def phase_baselines(wl, union_estimate: float, backend) -> dict:
+    """The paper's baselines on ``wl`` (on ``backend``, a ``TorchBackend``
+    built once for this phase and the next ones): ``DisjointUnionSampler.sample(65536)``
+    over the exact EW join sizes (rows in their home join; home shares
+    within 6σ + 0.002 of ``|J_j|/Σ|J|``) and ``BernoulliUnionSampler.
+    sample(8192)`` over those sizes and the random-walk union estimate
+    (rows in their home join and in no earlier one), each with the launch
+    counts set to 0 just before its call and read just after (both probes
+    > 0).  Then Bernoulli at UQ1 scale 0.05 against the reference's bar:
+    80·U rows, chi-square p > 1e-3 over the exact union."""
+    import torch
+    from repro_torch.core.framework import warmup
+    from repro_torch.core.join_sampler import JoinSampler
+    from repro_torch.core.overlap import exact_union_size
+    from repro_torch.core.union_sampler import (BernoulliUnionSampler,
+                                                DisjointUnionSampler)
+    from repro_torch.data.workloads import uq1
+    from repro_torch.kernels import build
+    sizes = {j.name: JoinSampler(wl.cat, j).exact_acyclic_size()
+             for j in wl.joins}
+    out = {"join_sizes": sizes, "union_estimate": union_estimate}
+    # Bernoulli first: the samplers share the backend's candidate sources,
+    # and Disjoint's last refills would serve Bernoulli's draws
+    for label, cls, args, n in (
+            ("bernoulli", BernoulliUnionSampler, (sizes, union_estimate),
+             8192),
+            ("disjoint", DisjointUnionSampler, (sizes,), 65536)):
+        smp = cls(wl.cat, wl.joins, *args, backend=backend)
+        if label == "bernoulli":
+            # the canonical test: one host-synced oracle probe per fired
+            # join and earlier join, each round
+            oracle = smp.prober.contains = _Timer(smp.prober.contains)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ss = smp.sample(n)
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        _require_probes(label, launches)
+        if len(ss) != n:
+            raise AssertionError(f"[baselines] {label} gave {len(ss)} rows")
+        t0 = time.perf_counter()
+        _check_homes(label, wl.joins, ss.rows, ss.home,
+                     canonical=label == "bernoulli")
+        st = ss.stats
+        out[label] = {"samples": n, "seconds": dt,
+                      "samples_per_s": n / dt, "psi": st.psi(),
+                      "candidate_draws": st.candidate_draws,
+                      "canonical_rejects": st.canonical_rejects,
+                      "home_counts": np.bincount(
+                          ss.home, minlength=len(wl.joins)).tolist(),
+                      "membership_check_s": time.perf_counter() - t0,
+                      "launches": launches}
+        if label == "disjoint":
+            p = np.array([sizes[j.name] for j in wl.joins], np.float64)
+            p /= p.sum()
+            f = np.bincount(ss.home, minlength=p.size) / n
+            tol = 6 * np.sqrt(p * (1 - p) / n) + 0.002
+            if not (np.abs(f - p) <= tol).all():
+                raise AssertionError(f"[baselines] disjoint home shares {f} "
+                                     f"differ from {p} (tol {tol})")
+        else:
+            out[label].update(rounds=st.iterations // 256,
+                              oracle_calls=oracle.calls,
+                              oracle_s=oracle.seconds,
+                              oracle_wall_ms=oracle.seconds
+                              / max(oracle.calls, 1) * 1e3)
+            if st.canonical_rejects <= 0:
+                raise AssertionError("[baselines] Bernoulli rejected nothing")
+    # the reference's bar for Bernoulli, at a size with an exact union
+    small = uq1(scale=0.05, overlap=0.4, seed=0)
+    wr = warmup(small.cat, small.joins, method="exact")
+    ssz = {j.name: wr.oracle.size(j.name) for j in small.joins}
+    U = exact_union_size(small.cat, small.joins)
+    t0 = time.perf_counter()
+    bern = BernoulliUnionSampler(small.cat, small.joins, ssz, float(U),
+                                 seed=9, device="cuda")
+    ss = bern.sample(80 * U)
+    p = _chi2_p(ss.matrix(), U)
+    _check_homes("bernoulli 0.05", small.joins, ss.rows, ss.home, True)
+    out["bernoulli_reference"] = {"U": U, "samples": len(ss), "chi2_p": p,
+                                  "seconds": time.perf_counter() - t0}
+    if p <= 1e-3:
+        raise AssertionError(f"[baselines] Bernoulli at scale 0.05 is not "
+                             f"uniform (p={p})")
+    return out
+
+
+def phase_chain(wl, n: int = 65536) -> dict:
+    """``TorchChainSampler`` over UQ1_J0: kernel draws equal plain draws on
+    the same uniforms, then the rate of ``sample_uniform(n)`` with the
+    launch counts set to 0 just before and read just after; its rows lie in
+    the join."""
+    import torch
+    from repro_torch.core.torch_sampler import TorchChainSampler
+    from repro_torch.kernels import build
+    spec = wl.joins[0]
+    t0 = time.perf_counter()
+    cs = TorchChainSampler(wl.cat, spec, seed=0, device="cuda")
+    build_s = time.perf_counter() - t0
+    u = cs.uniforms.tree(cs.tree.n_streams, 8192)
+    a, b = cs.tree.draw(u), cs.tree.draw(u, plain=True)
+    _check_equal([a[1], a[2]] + [a[0][k] for k in cs.attrs],
+                 [b[1], b[2]] + [b[0][k] for k in cs.attrs],
+                 f"[chain] {spec.name} draws")
+    cs.sample_uniform(4096)                          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = cs.sample_uniform(n)
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    _require_probes("chain", launches)
+    head = {k: v[:4096] for k, v in rows.items()}
+    if not _join_membership([spec], head).all():
+        raise AssertionError("[chain] a row is not in the join")
+    return {"join": spec.name, "hops": cs.n_hops, "build_s": build_s,
+            "samples": n, "seconds": dt, "samples_per_s": n / dt,
+            "draws_kernel_eq_plain": 8192, "launches": launches}
+
+
+def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
+                   samples: int = 4096) -> dict:
+    """Two ``seed-split`` replicas (world 2, ranks 0 and 1) served through
+    one ``SampleService`` (``requests`` × ``samples``, launch counts set to
+    0 just before and read just after; rows in their home piece and no
+    earlier one), a ``hash-partition`` rank 0 of 2 (every row in partition
+    0), and ``merge_streams`` of the replicas' next samples."""
+    import torch
+    from repro_torch.core.distributed import (DistributedUnionSampler,
+                                              merge_streams, partition_of)
+    from repro_torch.kernels import build
+    from repro_torch.serve import SampleService
+    reps = [DistributedUnionSampler(wl.cat, wl.joins, est.cover, rank=r,
+                                    world=2, seed=0, backend=backend,
+                                    round_batch=round_batch)
+            for r in range(2)]
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with SampleService(reps, batch=round_batch, prefetch=2) as svc:
+        got = [svc.request(samples) for _ in range(requests)]
+        merged_stats = svc.stats()
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    _require_probes("replicas", launches)
+    if [len(g) for g in got] != [samples] * requests:
+        raise AssertionError("[replicas] short responses")
+    check_membership(reps[0].inner, got[-1].rows, got[-1].home)
+    hp = DistributedUnionSampler(wl.cat, wl.joins, est.cover, rank=0,
+                                 world=2, scheme="hash-partition", seed=0,
+                                 backend=backend, round_batch=round_batch)
+    ss = hp.sample(samples)
+    if len(ss) != samples or not (partition_of(ss.fingerprint, 2) == 0).all():
+        raise AssertionError("[replicas] hash-partition rank 0 left its "
+                             "partition")
+    check_membership(hp.inner, ss.rows, ss.home)
+    parts = [r.sample(samples) for r in reps]
+    merged = merge_streams(parts, seed=0)
+    if len(merged) != 2 * samples or merged.stats.samples_emitted != sum(
+            p.stats.samples_emitted for p in parts):
+        raise AssertionError("[replicas] merge_streams lost rows or counts")
+    return {"requests": requests, "samples": samples,
+            "seconds": dt, "samples_per_s": requests * samples / dt,
+            "psi": merged_stats.psi(), "launches": launches,
+            "hash_partition_rows": len(ss),
+            "hash_partition_psi": ss.stats.psi(), "merged_rows": len(merged)}
+
+
+def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
+                  n: int = 8192) -> dict:
+    """World 1 on ``wl`` (no process group, no collective):
+    ``SetUnionSampler(mesh=make_sampler_mesh(world=1))`` and, on the same
+    ``ShardedCatalog``, the adaptive ``ShardedUnionSampler``; each against
+    the unsharded engine with the same seed on the same backend (the engine
+    a ``SetUnionSampler`` without a mesh runs): ``calls`` × ``sample(n)``
+    bit-equal in rows, homes, fingerprints and ``SamplerStats``, with the
+    launch counts set to 0 just before the sharded calls and read just
+    after.  Then both engines' rates in turns on one state."""
+    import torch
+    from repro_torch.core.backends.torch_backend import TorchUnionSampler
+    from repro_torch.core.sharding import ShardedUnionSampler, \
+        make_sampler_mesh
+    from repro_torch.core.union_sampler import SamplerStats, SetUnionSampler
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    meshed = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0,
+                             backend=backend, round_batch=round_batch,
+                             mesh=make_sampler_mesh(world=1))
+    torch.cuda.synchronize()
+    out = {"sharded_catalog_build_s": time.perf_counter() - t0,
+           "device": str(meshed.device)}
+    scat = meshed.engine.scat
+    for plan in ("static", "adaptive"):
+        sharded = (meshed.engine if plan == "static" else ShardedUnionSampler(
+            scat, est.cover, seed=0, round_batch=round_batch,
+            stats=SamplerStats(), plan=plan))
+        plain = TorchUnionSampler(meshed.backend, est.cover, seed=0,
+                                  round_batch=round_batch,
+                                  stats=SamplerStats(), plan=plan)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        got = [sharded.sample(n) for _ in range(calls)]
+        launches = _launches()
+        _require_probes(f"sharded {plan}", launches)
+        want = [plain.sample(n) for _ in range(calls)]
+        # (a SampleSet's stats are the engine's running counters)
+        if not (all(np.array_equal(a.matrix(), b.matrix())
+                    and np.array_equal(a.home, b.home)
+                    and np.array_equal(a.fingerprint, b.fingerprint)
+                    for a, b in zip(got, want))
+                and got[-1].stats.as_dict() == want[-1].stats.as_dict()):
+            raise AssertionError(f"[sharded] {plan}: world 1 differs from "
+                                 "the unsharded engine")
+        check_membership(meshed, got[-1].rows, got[-1].home)
+
+        def rate(engine, k=4):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                engine.sample(round_batch)
+            torch.cuda.synchronize()
+            return k * round_batch / (time.perf_counter() - t0)
+        out[plan] = {"calls": calls, "n": n, "bit_equal": True,
+                     "launches": launches,
+                     "shard_piece_batches": list(sharded.shard_piece_batches),
+                     "psi": got[-1].stats.psi(),
+                     "engine_samples_per_s_in_turns": [
+                         [name, rate(e)] for name, e in (
+                             ("unsharded", plain), ("sharded", sharded),
+                             ("sharded", sharded), ("unsharded", plain))]}
+    return out
+
+
+def phase_sharded_est(wl, rw_out: dict, max_walks: int) -> dict:
+    """``warmup(method="random_walk", mesh=world 1)`` with ``[rw-warmup]``'s
+    seed and budget equals that warm-up: per join the estimate, its 90 %
+    half-width and its walk count, and the union size of the cover."""
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.sharding import make_sampler_mesh
+    from repro_torch.kernels import build
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    wr = warmup(wl.cat, wl.joins, method="random_walk", seed=0,
+                rw_max_walks=max_walks, mesh=make_sampler_mesh(world=1))
+    est = estimate_union(wr.oracle)
+    launches = _launches()
+    seconds = time.perf_counter() - t0
+    if launches["probe_pick"] <= 0:
+        raise AssertionError("[sharded-est] the walks launched no probe_pick")
+    for j in wl.joins:
+        st, want = wr.aux.size_stats[j.name], rw_out["sizes"][j.name]
+        got = {"estimate": st.mean, "half_width_90": st.half_width(0.90),
+               "walks": st.count}
+        if any(got[k] != want[k] for k in got):
+            raise AssertionError(f"[sharded-est] {j.name}: {got} differs "
+                                 f"from the warm-up without a mesh {want}")
+    if est.union_size_cover != rw_out["union_size_cover"]:
+        raise AssertionError("[sharded-est] the cover's union size differs")
+    return {"seconds": seconds, "equal_to_rw_warmup": True,
+            "union_size_cover": est.union_size_cover, "launches": launches}
+
+
+def _w2_rank(rank: int, port: int, scale: float, requests: int,
+             samples: int, round_batch: int, results) -> None:
+    """One rank of ``[sharded-w2]``: the serve CLI's sampler with
+    ``shards=2`` over a gloo group on the one card."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        import hashlib
+        from repro_torch.kernels import build
+        from repro_torch.launch.serve import build_sampler
+        sampler, _, _, _ = build_sampler("UQ1", scale, seed=0, device="cuda",
+                                         round_batch=round_batch, shards=2)
+        sampler.sample(256)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = [sampler.sample(samples) for _ in range(requests)]
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        mat = np.concatenate([np.concatenate([g.matrix(), g.home[:, None]],
+                                             axis=1) for g in got])
+        last = got[-1]
+        check_membership(sampler, last.rows, last.home)
+        results.put((rank, {"seconds": dt,
+                            "samples_per_s": requests * samples / dt,
+                            "launches": launches, "rows": mat.shape[0],
+                            "digest": hashlib.sha256(np.ascontiguousarray(
+                                mat, np.int64).tobytes()).hexdigest(),
+                            "device": str(sampler.device)}))
+    except BaseException as e:
+        results.put((rank, {"error": repr(e)}))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_w2(scale: float, round_batch: int, requests: int = 4,
+                     samples: int = 4096, timeout: float = 150.0) -> dict:
+    """Two processes on the one card in a gloo group (NCCL refuses two
+    ranks on one device): UQ1 at ``scale`` with ``shards=2``, ``requests``
+    × ``sample(samples)`` on each rank.  Both ranks must return the same
+    rows (a digest of the whole stream) with their rows in their home
+    pieces, and both probes must launch on each."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_w2_rank, args=(r, port, scale, requests,
+                                                samples, round_batch,
+                                                results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = results.get(timeout=timeout)
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if any(p.exitcode != 0 or "error" in got.get(r, {"error": None})
+           for r, p in enumerate(procs)):
+        raise AssertionError(f"[sharded-w2] ranks failed: exit codes "
+                             f"{[p.exitcode for p in procs]}, {got}")
+    if got[0]["digest"] != got[1]["digest"] or got[0]["rows"] != \
+            requests * samples:
+        raise AssertionError(f"[sharded-w2] the ranks' streams differ: {got}")
+    for r in got.values():
+        _require_probes("sharded-w2", r["launches"])
+    return {"scale": scale, "world": 2, "backend": "gloo",
+            "requests": requests, "samples": samples,
+            "wall_s": time.perf_counter() - t0, "ranks": got}
 
 
 def main(argv=None) -> int:
@@ -1564,9 +1977,60 @@ def main(argv=None) -> int:
         online_out["draw_launches"]["sorted_probe"]
     print("[online] " + json.dumps(online_out), flush=True)
     mark("online")
+
+    # 10. on the UQ1 state: the paper's baselines, the chain façade, the
+    # seed-split and hash-partition replicas and the sharded engine at
+    # world 1, all on one TorchBackend (built once, not counted in them)
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    t0 = time.perf_counter()
+    backend1 = TorchBackend(wl1.cat, wl1.joins, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    backend1_s = time.perf_counter() - t0
+    base_out = phase_baselines(wl1, rw_out["union_size_cover"], backend1)
+    base_out["backend_build_s"] = backend1_s
+    path_launches("UQ1 disjoint", base_out["disjoint"])
+    path_launches("UQ1 bernoulli", base_out["bernoulli"])
+    print("[baselines] " + json.dumps(base_out), flush=True)
+    mark("baselines")
+    chain_out = phase_chain(wl1)
+    path_launches("UQ1_J0 chain", chain_out)
+    print("[chain] " + json.dumps(chain_out), flush=True)
+    mark("chain")
+    rep_out = phase_replicas(wl1, est1, args.round_batch, backend1)
+    path_launches("UQ1 replicas", rep_out)
+    print("[replicas] " + json.dumps(rep_out), flush=True)
+    mark("replicas")
+    sh_out = phase_sharded(wl1, est1, args.round_batch, backend1)
+    path_launches("UQ1 sharded static", sh_out["static"])
+    path_launches("UQ1 sharded adaptive", sh_out["adaptive"])
+    print("[sharded] " + json.dumps(sh_out), flush=True)
+    mark("sharded")
+    del backend1
+    she_out = phase_sharded_est(wl1, rw_out, args.rw_max_walks)
+    pick_row["launches_by_path"]["UQ1 sharded rw-warmup"] = \
+        she_out["launches"]["probe_pick"]
+    print("[sharded-est] " + json.dumps(she_out), flush=True)
+    mark("sharded-est")
     del wl1, est1
 
-    # 9. §8.3 predicates: UQ2 pushdown (masked base indexes shared by the
+    # ... the serve CLI with --shards 1, and two gloo ranks on the card
+    from repro_torch.kernels import probe
+    from repro_torch.launch.serve import main as serve_main
+    probe.reset_launch_counts()
+    scli_out = serve_main(["--mode", "samples", "--workload", "UQ1",
+                           "--scale", str(SHARDS_SCALE), "--requests", "4",
+                           "--device", "cuda", "--shards", "1"])
+    scli_out["launches"] = _launches()
+    _require_probes("shards-cli", scli_out["launches"])
+    path_launches("UQ1 CLI --shards 1", scli_out)
+    print("[shards-cli] " + json.dumps(scli_out), flush=True)
+    mark("shards-cli")
+    w2_out = phase_sharded_w2(SHARDS_SCALE, args.round_batch)
+    path_launches("UQ1 sharded world 2 (rank 0)", w2_out["ranks"][0])
+    print("[sharded-w2] " + json.dumps(w2_out), flush=True)
+    mark("sharded-w2")
+
+    # 8. §8.3 predicates: UQ2 pushdown (masked base indexes shared by the
     # three flavours; every node weighted, so sorted_probe only) ...
     uq2_pre: dict = {}
 
@@ -1631,8 +2095,6 @@ def main(argv=None) -> int:
 
     # ... the serve CLI as a user runs it (histogram warm-up, adaptive; its
     # cover serves JN only, see uq2_exact) ...
-    from repro_torch.kernels import probe
-    from repro_torch.launch.serve import main as serve_main
     probe.reset_launch_counts()
     cli_out = serve_main(["--mode", "samples", "--workload", "UQ2",
                           "--plan", "adaptive", "--scale", str(args.scale),
@@ -1668,7 +2130,7 @@ def main(argv=None) -> int:
     print("[record] " + json.dumps(rec_out), flush=True)
     mark("record")
 
-    # 10. small-input reference on the card
+    # 11. small-input reference on the card
     ps = {"UQ1 static": phase_small_reference(),
           "UQ1 adaptive": phase_small_reference(plan="adaptive"),
           "UQ2 pushdown": phase_small_reference("UQ2"),

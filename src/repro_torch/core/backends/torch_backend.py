@@ -921,7 +921,7 @@ class TorchUnionSampler:
                              f"{plan!r}")
         self.plan = plan
         self._slot_width = self.round_batch
-        self._ema_seed = self._ema_shifts = None
+        self._ema_seed = None
         if plan == "adaptive":
             self._ema_seed = planner.seed_rates(
                 cover, {t.name: t.spec for t in self.trees})
@@ -929,11 +929,7 @@ class TorchUnionSampler:
             self.piece_batches = planner.alloc_batches(
                 self.piece_batches, base, self._ema_seed[:, 0],
                 self._slot_width)
-            self._ema_shifts = torch.as_tensor(
-                planner.ema_shifts(self.piece_batches), device=self.device)
-        self._pbatch = torch.as_tensor(self.piece_batches, dtype=torch.int64,
-                                       device=self.device)
-        self._pbatch_i32 = self._pbatch.to(torch.int32)
+        self._set_piece_batches(self.piece_batches)
         self._plan_cache_key = planner.plan_key(backend.cat, backend.joins,
                                                 cover)
         # per-piece bank drain cap per round (a semantics constant shared
@@ -948,6 +944,18 @@ class TorchUnionSampler:
         self.last_host_syncs = 0
         self.host_syncs = 0
         self._state: Optional[_LoopState] = None
+
+    def _set_piece_batches(self, piece_batches) -> None:
+        """Set the per-join draw widths and the device constants derived
+        from them (the sharded engine calls it again after scaling the
+        widths to ``world`` ranks)."""
+        self.piece_batches = tuple(int(b) for b in piece_batches)
+        self._pbatch = torch.as_tensor(self.piece_batches, dtype=torch.int64,
+                                       device=self.device)
+        self._pbatch_i32 = self._pbatch.to(torch.int32)
+        self._ema_shifts = (torch.as_tensor(
+            planner.ema_shifts(self.piece_batches), device=self.device)
+            if self.plan == "adaptive" else None)
 
     # -- device and stream ---------------------------------------------------
     def _on_device(self):

@@ -1,6 +1,6 @@
 """Card estimation engine — batched wander-join walks on the device.
 
-Port of ``repro.core.estimators.jax_estimator`` (without its mesh path):
+Port of ``repro.core.estimators.jax_estimator``:
 
 * :class:`TorchWalkJoin` — a batch of wander-join walks (§6.1): a uniform
   root position, then per relation in expansion order a composite-key range
@@ -23,6 +23,14 @@ Port of ``repro.core.estimators.jax_estimator`` (without its mesh path):
   bounds with the per-value histogram algebra (intersect / min / sum) as
   torch ops.
 
+``mesh=`` (a :func:`~repro_torch.core.sharding.make_sampler_mesh` mesh)
+runs each observation as ``world`` walk batches, one per rank; the
+per-rank HT moments merge in :func:`~repro_torch.core.sharding.
+psum_merge_moments` (three ``all_reduce`` sums for both accumulators) and
+the walk pool keeps every rank's batch, flattened in rank order (one
+``all_gather``).  At world 1 the walks come from the unsharded stream and
+no collective runs.
+
 Random numbers come from a **walk stream**: ``uniforms.walk(n_root, n_hops,
 batch)`` returns the root positions (int64) and the ``(n_hops, batch)``
 float32 hop uniforms of one batch.  Production uses
@@ -41,7 +49,7 @@ from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import mesh_device, resolve_device
 from ...kernels.probe import probe_pick, probe_pick_plain
 from ..backends.torch_backend import (PhiloxUniforms, TorchJoinMembership,
                                       _I32_LIM, _attr_widths, _cached_col,
@@ -50,6 +58,7 @@ from ..backends.torch_backend import (PhiloxUniforms, TorchJoinMembership,
 from ..index import Catalog
 from ..joins import JoinSpec
 from ..overlap import HistogramOverlap
+from ..sharding.stats import psum_merge_moments
 from ..size_estimation import z_value
 from .base import EstimationLoop, OverlapEstimate, PoolBatch, ReservoirPool
 
@@ -227,15 +236,22 @@ class TorchEstimator(EstimationLoop):
     ``device=None`` means the card and raises without one.  ``members``
     shares a sampling backend's membership indexes (OnlineUnionSampler
     passes them); ``uniforms`` replaces the Philox walk stream seeded from
-    ``seed``."""
+    ``seed``.  With ``mesh=`` at world > 1, rank ``r`` walks on a stream
+    seeded ``rank_stream_seed(seed, r, WALK_STREAM)``."""
 
     name = "torch"
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], seed: int = 0,
                  batch: int = 512,
                  members: Optional[Dict[str, TorchJoinMembership]] = None,
-                 device=None, uniforms=None):
-        self.device = resolve_device(device)
+                 device=None, uniforms=None, mesh=None):
+        self.device = resolve_device(mesh_device(mesh, device))
+        self.mesh = mesh
+        self.world = mesh.world if mesh is not None else 1
+        if uniforms is None and self.world > 1:
+            from ..sharding.catalog import WALK_STREAM, rank_stream_seed
+            uniforms = PhiloxUniforms(
+                rank_stream_seed(seed, mesh.rank, WALK_STREAM), self.device)
         self.cat = cat
         self.joins = list(joins)
         schemas = {tuple(sorted(j.output_attrs)) for j in self.joins}
@@ -286,8 +302,8 @@ class TorchEstimator(EstimationLoop):
         if walker.is_empty():
             # every walk fails: HT draws are observations of zero
             for _ in range(rounds):
-                sstat.update_zeros(self.batch)
-                stat.update_zeros(self.batch)
+                sstat.update_zeros(self.batch * self.world)
+                stat.update_zeros(self.batch * self.world)
             return OverlapEstimate(stat.mean, stat.half_width(0.90), stat.count)
         members = [self.members[n] for n in
                    sorted(j.name for j in delta if j.name != pivot.name)]
@@ -304,11 +320,27 @@ class TorchEstimator(EstimationLoop):
             for m in members:
                 ind = ind & m.contains(rows, fp_cache)
             contrib = torch.where(ind, inv, torch.zeros_like(inv))
-            sstat.state = _merge_moments(*sstat.state, *_batch_moments(inv))
-            stat.state = _merge_moments(*stat.state, *_batch_moments(contrib))
+            smom, omom = _batch_moments(inv), _batch_moments(contrib)
+            if self.mesh is not None:
+                # both accumulators' batch moments, merged over the ranks
+                n, mean, m2 = psum_merge_moments(
+                    *(torch.stack([a, b]) for a, b in zip(smom, omom)),
+                    self.mesh)
+                smom, omom = (n[0], mean[0], m2[0]), (n[1], mean[1], m2[1])
+            sstat.state = _merge_moments(*sstat.state, *smom)
+            stat.state = _merge_moments(*stat.state, *omom)
             # the pool batch in one device→host copy (prob bit-cast to int32)
             mat = torch.stack([rows[a] for a in attrs]
-                              + [prob.view(torch.int32)], dim=1).cpu().numpy()
+                              + [prob.view(torch.int32)], dim=1)
+            if self.world > 1:
+                # every rank's batch, flattened in rank order
+                import torch.distributed as dist
+                g = torch.empty(self.world * mat.numel(), dtype=mat.dtype,
+                                device=mat.device)
+                dist.all_gather_into_tensor(g, mat.reshape(-1),
+                                            group=self.mesh.group)
+                mat = g.view(-1, mat.shape[1])
+            mat = mat.cpu().numpy()
             self._pool.add(pivot.name, (
                 {a: mat[:, i].astype(np.int64) for i, a in enumerate(attrs)},
                 np.ascontiguousarray(mat[:, -1]).view(np.float32)

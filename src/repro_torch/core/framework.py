@@ -59,13 +59,17 @@ def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact",
            rw_rel_halfwidth: float = 0.25,
            rw_max_walks: int = 20_000,
            hist_mode: str = "max", device=None,
-           uniforms=None) -> WarmupResult:
+           uniforms=None, mesh=None) -> WarmupResult:
     """Build the parameter oracle.  ``exact`` and ``histogram`` run on the
     host; ``random_walk`` runs its walks on ``device`` (``None`` means the
     card and raises without one), seeded from ``seed`` unless ``uniforms``
-    replaces the walk stream.  The oracle is lazy: the walks run when the
-    cover or the k-overlaps ask for an estimate."""
+    replaces the walk stream.  ``mesh`` (random_walk only) spreads each walk
+    batch across the mesh's ranks with a merge of the moments over the mesh
+    (see :mod:`repro_torch.core.sharding.stats`).  The oracle is lazy: the
+    walks run when the cover or the k-overlaps ask for an estimate."""
     joins = list(joins)
+    if mesh is not None and method != "random_walk":
+        raise ValueError("mesh= applies to method='random_walk' only")
     t0 = time.perf_counter()
     if method == "exact":
         oracle = OverlapOracle(lambda d: exact_overlap(cat, d),
@@ -85,7 +89,7 @@ def warmup(cat: Catalog, joins: Sequence[JoinSpec], method: str = "exact",
     elif method == "random_walk":
         from .estimators import get_estimator
         rw = get_estimator("torch", cat, joins, seed=seed, batch=rw_batch,
-                           device=device, uniforms=uniforms)
+                           device=device, uniforms=uniforms, mesh=mesh)
         est_fn = (lambda d: rw.estimate(d, rel_halfwidth=rw_rel_halfwidth,
                                         max_walks=rw_max_walks).value)
         size_fn = rw.join_size

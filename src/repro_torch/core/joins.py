@@ -83,6 +83,13 @@ class JoinSpec:
     def is_cyclic(self) -> bool:
         return bool(self.residual_nodes)
 
+    @property
+    def is_chain(self) -> bool:
+        if self.is_cyclic:
+            return False
+        kids = self.children_map()
+        return all(len(kids.get(n.alias, [])) <= 1 for n in self.tree_nodes)
+
     def node(self, alias: str) -> JoinNode:
         return self._by_alias[alias]
 

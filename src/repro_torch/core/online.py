@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..device import mesh_device
 from ..obs import TraceRing
 from .cover import Cover, build_cover
 from .estimators import EstimatorBackend, get_estimator
@@ -71,7 +72,9 @@ class OnlineUnionSampler:
     PyTorch path).  ``uniforms`` replaces the device Philox streams: an
     object with the estimator's ``walk(n_root, n_hops, batch)`` and
     ``source(i)``, the stream of join ``i``'s candidate source (tests replay
-    the reference's JAX keys through it).  ``mesh=`` comes with sharding."""
+    the reference's JAX keys through it).  ``mesh=`` refines the parameters
+    from walks on every rank of the mesh (the estimator's mesh path); the
+    sampling itself is the same on every rank."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], seed: int = 0,
                  phi: int = 2048, rw_batch: int = 256,
@@ -86,9 +89,10 @@ class OnlineUnionSampler:
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} (repro_torch runs "
                              "backend='torch' only)")
-        if mesh is not None:
-            raise ValueError("mesh= comes with sharding; repro_torch has no "
-                             "sharded estimator yet")
+        if mesh is not None and estimator not in (None, "torch"):
+            raise ValueError("mesh= needs the device estimator; leave "
+                             "estimator= unset (or 'torch')")
+        device = mesh_device(mesh, device)
         self.plan = plan
         self.cat = cat
         self.joins = list(joins)
@@ -116,7 +120,7 @@ class OnlineUnionSampler:
             "torch" if estimator is None else estimator, cat, self.joins,
             seed=seed + 1, batch=rw_batch,
             members=self.backend.members, device=self.device,
-            uniforms=uniforms)
+            uniforms=uniforms, mesh=mesh)
 
         # (1) cheap init: HISTOGRAM-BASED parameters (device ops).  §8.3:
         # overlaps of filtered joins are scaled by predicate selectivity

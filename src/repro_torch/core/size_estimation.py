@@ -75,6 +75,22 @@ class RunningMean:
         for x in np.asarray(xs, dtype=np.float64).ravel():
             self.update(float(x))
 
+    def merge(self, other: "RunningMean") -> "RunningMean":
+        """Associative merge (Chan et al.) — used by the distributed
+        sampler's all-gather (:func:`repro_torch.core.distributed.
+        merge_statistics`)."""
+        if other.count == 0:
+            return self
+        if self.count == 0:
+            self.count, self.mean, self.m2 = other.count, other.mean, other.m2
+            return self
+        n = self.count + other.count
+        d = other.mean - self.mean
+        self.mean += d * other.count / n
+        self.m2 += other.m2 + d * d * self.count * other.count / n
+        self.count = n
+        return self
+
     @property
     def variance(self) -> float:
         return self.m2 / (self.count - 1) if self.count > 1 else 0.0

@@ -23,3 +23,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev
+
+
+def mesh_device(mesh, device=None):
+    """The device of an entry point called with ``mesh=``: the mesh's
+    rank device, which ``device`` may repeat but not contradict.  Without a
+    mesh, ``device`` as given."""
+    if mesh is None:
+        return device
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device!r} differs from the mesh's device "
+                         f"{mesh.device}")
+    return mesh.device

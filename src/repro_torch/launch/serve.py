@@ -13,15 +13,26 @@ batching) over the torch engine, on the card unless ``--device cpu``::
 
 ``--workload UQ2`` builds the §8.3 predicate workload in its default
 pushdown mode; ``--plan adaptive`` runs the adaptive round planner.
+``--shards N`` runs the sharded engine of :mod:`repro_torch.core.sharding`
+(0, the default, is unsharded): ``--shards 1`` in this process; ``N > 1``
+needs a process group of N ranks, so run it under torchrun, which starts
+the N processes (one card each), whose group this CLI initialises
+(``nccl`` on the card, ``gloo`` with ``--device cpu``)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mode samples \
+        --workload UQ1 --shards 4
+
+Every rank serves the same samples; rank 0 prints.
 
 It prints the served rate, ψ (candidate draws per emitted sample), rounds
-and host syncs.  The LM decode mode, sharding and the ``/metrics`` endpoint
-of the reference CLI are not ported yet.
+and host syncs.  The LM decode mode and the ``/metrics`` endpoint of the
+reference CLI are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -29,21 +40,27 @@ import numpy as np
 
 
 def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
-                  round_batch: int = 8192, plan: str = "static"):
-    """Workload → histogram warm-up → cover → ``SetUnionSampler``.
+                  round_batch: int = 8192, plan: str = "static",
+                  shards: int = 0):
+    """Workload → histogram warm-up → cover → ``SetUnionSampler`` (on a
+    mesh of ``shards`` ranks when ``shards > 0``).
 
     Returns ``(sampler, workload, estimates, host_build_seconds)``."""
     from ..core.framework import estimate_union, warmup
     from ..core.union_sampler import SetUnionSampler
     from ..data.workloads import WORKLOADS
 
+    mesh = None
+    if shards:              # first: a missing process group fails fast
+        from ..core.sharding import make_sampler_mesh
+        mesh = make_sampler_mesh(world=shards, device=device)
     t0 = time.perf_counter()
     wl = WORKLOADS[workload](scale=scale, seed=seed)
     wr = warmup(wl.cat, wl.joins, method="histogram")
     est = estimate_union(wr.oracle)
     sampler = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=seed,
                               backend="torch", device=device,
-                              round_batch=round_batch, plan=plan)
+                              round_batch=round_batch, plan=plan, mesh=mesh)
     return sampler, wl, est, time.perf_counter() - t0
 
 
@@ -57,18 +74,30 @@ def serve(sampler, requests: int, samples: int, batch: int,
     The clock starts before the timed service starts, so its queue is empty
     and every sample served in the window was made in it: the rate is
     samples delivered over the wall time from a cold queue to the last
-    response."""
+    response.
+
+    On a mesh of more than one rank the requests go straight to
+    ``sampler.sample``: a prefetching producer thread stops after a number
+    of rounds that depends on its rank's timing, and every rank must issue
+    the same collectives."""
     from ..serve import SampleService
 
     engine = sampler.engine
-    with SampleService(sampler, batch=batch, prefetch=prefetch) as svc:
-        svc.request(samples)
+
+    def service():
+        if getattr(engine, "world", 1) > 1:
+            return contextlib.nullcontext(sampler.sample)
+        return SampleService(sampler, batch=batch, prefetch=prefetch)
+
+    with service() as svc:
+        getattr(svc, "request", svc)(samples)
     t0 = time.perf_counter()
-    with SampleService(sampler, batch=batch, prefetch=prefetch) as svc:
+    with service() as svc:
+        request = getattr(svc, "request", svc)
         served = 0
         homes = np.zeros(len(sampler.order), np.int64)
         for _ in range(requests):
-            ss = svc.request(samples)
+            ss = request(samples)
             served += len(ss)
             homes += np.bincount(ss.home, minlength=homes.shape[0])
         dt = time.perf_counter() - t0
@@ -101,29 +130,56 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
                     default="static",
                     help="round planner: 'adaptive' budgets candidates by "
                          "acceptance EMAs carried on the device")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="ranks of the sharded engine (0 = unsharded; "
+                         "N > 1 under torchrun)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="prefetched sample batches in the serve queue")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch path)")
     args = ap.parse_args(argv)
+    rank = 0
+    if args.shards > 1:
+        rank = _init_ranks(args.device)
     sampler, _, _, build_s = build_sampler(args.workload, args.scale,
                                            args.seed, args.device,
-                                           args.round_batch, args.plan)
+                                           args.round_batch, args.plan,
+                                           args.shards)
     sampler.sample(256)                     # warm-up call
     out = serve(sampler, args.requests, args.samples, args.round_batch,
                 args.prefetch)
     out["build_s"] = build_s
-    print(f"served {args.requests} requests x {args.samples} samples "
-          f"({out['samples']} total) in {out['seconds']:.3f}s — "
-          f"{out['samples_per_s']:,.0f} samples/s [backend=torch, "
-          f"device={sampler.device}, workload={args.workload}, "
-          f"plan={args.plan}; psi={out['psi']:.3f}, "
-          f"draws={out['candidate_draws']}, rejects={out['cover_rejects']}, "
-          f"pred_rejects={out['pred_rejects']}, "
-          f"rounds={out['rounds_total']}, host_syncs={out['host_syncs']}, "
-          f"build={build_s:.1f}s]", flush=True)
+    out["shards"] = args.shards
+    if rank == 0:
+        print(f"served {args.requests} requests x {args.samples} samples "
+              f"({out['samples']} total) in {out['seconds']:.3f}s — "
+              f"{out['samples_per_s']:,.0f} samples/s [backend=torch, "
+              f"device={sampler.device}, workload={args.workload}, "
+              f"plan={args.plan}; psi={out['psi']:.3f}, "
+              f"draws={out['candidate_draws']}, "
+              f"rejects={out['cover_rejects']}, "
+              f"pred_rejects={out['pred_rejects']}, "
+              f"shards={args.shards}, rounds={out['rounds_total']}, "
+              f"host_syncs={out['host_syncs']}, build={build_s:.1f}s]",
+              flush=True)
     return out
+
+
+def _init_ranks(device) -> int:
+    """Join the process group that torchrun describes (``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``/``MASTER_PORT`` in the environment) and return
+    this rank.  Without a launcher's environment the mesh refuses
+    ``--shards N > 1``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+    if not dist.is_initialized() and "MASTER_ADDR" in os.environ:
+        dist.init_process_group(
+            "gloo" if device == "cpu" else "nccl",
+            timeout=datetime.timedelta(seconds=600))
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 if __name__ == "__main__":

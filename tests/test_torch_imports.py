@@ -23,8 +23,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "repro"
              or m.startswith("repro."))
-print(len(names), "modules;", "leaked:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+new = {"repro_torch.core.distributed", "repro_torch.core.torch_sampler",
+       "repro_torch.core.sharding", "repro_torch.core.sharding.catalog",
+       "repro_torch.core.sharding.sampler", "repro_torch.core.sharding.stats"}
+print(len(names), "modules;", "leaked:", bad, "missing:", new - set(names))
+sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)
 """
 
 
@@ -37,19 +40,26 @@ def test_port_imports_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device",
                                    "ops", "online", "estimator",
-                                   "rw_warmup"])
+                                   "rw_warmup", "disjoint", "bernoulli",
+                                   "chain", "distributed", "mesh"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.core.distributed import DistributedUnionSampler
     from repro_torch.core.estimators import TorchEstimator
     from repro_torch.core.framework import estimate_union, warmup
     from repro_torch.core.online import OnlineUnionSampler
-    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.core.sharding import ShardedCatalog, make_sampler_mesh
+    from repro_torch.core.torch_sampler import TorchChainSampler
+    from repro_torch.core.union_sampler import (BernoulliUnionSampler,
+                                                DisjointUnionSampler,
+                                                SetUnionSampler)
     from repro_torch.data.workloads import uq1
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wl = uq1(scale=0.05, overlap=0.4, seed=0)
+    sizes = {j.name: 1.0 for j in wl.joins}
     keys = np.arange(10)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "set_union_sampler":
@@ -66,9 +76,26 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             TorchEstimator(wl.cat, wl.joins)
         elif entry == "rw_warmup":
             warmup(wl.cat, wl.joins, method="random_walk")
+        elif entry == "disjoint":
+            DisjointUnionSampler(wl.cat, wl.joins, sizes)
+        elif entry == "bernoulli":
+            BernoulliUnionSampler(wl.cat, wl.joins, sizes, 1.0)
+        elif entry == "chain":
+            TorchChainSampler(wl.cat, wl.joins[0])
+        elif entry == "distributed":
+            est = estimate_union(warmup(wl.cat, wl.joins,
+                                        method="histogram").oracle)
+            DistributedUnionSampler(wl.cat, wl.joins, est.cover, rank=0,
+                                    world=2)
+        elif entry == "mesh":
+            ShardedCatalog(wl.cat, wl.joins)
         else:
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    if entry == "mesh":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_sampler_mesh()
+        assert make_sampler_mesh(device="cpu").device.type == "cpu"
     if entry == "ops":
         for fn in (lambda d: ops.searchsorted(keys, keys, device=d),
                    lambda d: ops.walk_hop(keys, keys, np.zeros(10), device=d),

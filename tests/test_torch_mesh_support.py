@@ -1,0 +1,229 @@
+"""Multi-process helpers of ``tests/test_torch_sharding.py`` (no tests here).
+
+:func:`spawn` starts ``world`` CPU processes that join one ``gloo`` group
+(a free localhost port found by binding to port 0, an init ``timeout``)
+and run a worker of this module on each rank; it fails if a rank raises
+and kills the ranks if they have not all finished within ``timeout``
+seconds.  This module imports neither ``jax`` nor ``repro``, so the spawned
+ranks start on ``torch`` and ``repro_torch`` alone.
+
+The workers check on every rank:
+
+* :func:`check_exchange` — the sharded round's fingerprint exchange gives,
+  for every (join, earlier piece) of UQ1's five joins, the verdicts of the
+  unsharded ``TorchJoinMembership.contains`` on this rank's own candidates;
+* :func:`check_moment_merge` — ``psum_merge_moments`` over the ranks equals
+  ``merge_statistics`` of per-rank ``RunningMean``s and
+  ``merge_moment_stack`` of the gathered moments;
+* :func:`check_uniform` — ``SetUnionSampler(mesh=)`` on UQ1 (scale 0.05,
+  overlap 0.5, seed 1, two joins; static and adaptive plan) and UQ4
+  (scale 0.02) passes the
+  reference's bar: ``N = 120·U`` rows uniform over the exact union
+  (chi-square p > 1e-3), every row in its home piece and no earlier one,
+  the same ``SampleSet`` on every rank, and UQ1's piece marginals within
+  0.03 of the unsharded engine's;
+* :func:`check_online` — ``OnlineUnionSampler(mesh=)`` smoke: every size
+  accumulator's count is a multiple of ``world · rw_batch``.
+"""
+
+import datetime
+import socket
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+GROUP_TIMEOUT_S = 60
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, worker):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        globals()[worker](world)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(worker: str, world: int, timeout: float = 120.0) -> None:
+    """Run ``worker(world)`` of this module on ``world`` gloo ranks."""
+    ctx = mp.start_processes(_rank_main,
+                             args=(world, free_port(), worker),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{worker} at world {world} did not finish "
+                                   f"within {timeout:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    assert not any(p.is_alive() for p in ctx.processes)
+
+
+# ---------------------------------------------------------------------------
+# workers (run on every rank)
+# ---------------------------------------------------------------------------
+
+
+def _exact_cover(wl):
+    from repro_torch.core.framework import estimate_union, warmup
+    return estimate_union(warmup(wl.cat, wl.joins, method="exact").oracle)
+
+
+def _same_on_every_rank(arr: np.ndarray, world: int) -> None:
+    t = torch.as_tensor(np.ascontiguousarray(arr).view(np.int64).reshape(-1))
+    g = torch.empty(world * t.numel(), dtype=t.dtype)
+    dist.all_gather_into_tensor(g, t)
+    g = g.view(world, -1)
+    assert all(torch.equal(g[0], g[s]) for s in range(world))
+
+
+def check_exchange(world: int) -> None:
+    from repro_torch.core.backends.torch_backend import (PhiloxUniforms,
+                                                         TorchJoinMembership)
+    from repro_torch.core.sharding import ShardedUnionSampler, \
+        ShardedCatalog, make_sampler_mesh
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=0.05, overlap=0.5, seed=1)
+    est = _exact_cover(wl)
+    mesh = make_sampler_mesh(world=world, device="cpu")
+    assert (mesh.world, mesh.rank) == (world, dist.get_rank())
+    eng = ShardedUnionSampler(ShardedCatalog(wl.cat, wl.joins, mesh=mesh),
+                              est.cover, seed=0, round_batch=512)
+    # every rank indexes only the fingerprints it owns; together they are
+    # the whole relation, and kmax is the global one
+    rel0 = eng.smems[0].rels[0]
+    n = torch.tensor([rel0.n_owned])
+    dist.all_reduce(n)
+    assert int(n) == rel0.nrows
+    u = PhiloxUniforms(100 + mesh.rank, "cpu")
+    rows_j = [t.draw(u.tree(t.n_streams, b))[0]
+              for t, b in zip(eng.trees, eng.shard_piece_batches)]
+    found = eng._exchange_probes(rows_j)
+    members = {j.name: TorchJoinMembership(j, device="cpu")
+               for j in wl.joins}
+    p = hits = total = 0
+    for j in range(len(eng.order)):
+        for q in range(j):
+            got = torch.ones(eng.shard_piece_batches[j], dtype=torch.bool)
+            for _ in eng.smems[q].rels:
+                got = got & found[p]
+                p += 1
+            want = members[eng.order[q]].contains(rows_j[j])
+            assert torch.equal(got, want), (j, q)
+            hits += int(want.sum())
+            total += want.numel()
+    assert p == len(found) and 0 < hits < total
+
+
+def check_moment_merge(world: int) -> None:
+    from repro_torch.core.distributed import merge_statistics
+    from repro_torch.core.sharding import (make_sampler_mesh,
+                                           merge_moment_stack,
+                                           psum_merge_moments)
+    from repro_torch.core.size_estimation import RunningMean
+    mesh = make_sampler_mesh(world=world, device="cpu")
+    xs = np.random.default_rng(0).exponential(5.0, (world, 64))
+    x = torch.as_tensor(xs[mesh.rank], dtype=torch.float32)
+    mean = torch.mean(x)
+    m2 = torch.sum((x - mean) ** 2)
+    n = torch.tensor(x.shape[0], dtype=torch.int32)
+    total, gmean, gm2 = psum_merge_moments(n, mean, m2, mesh)
+    parts = []
+    for s in range(world):
+        r = RunningMean()
+        r.update_batch(xs[s])
+        parts.append(r)
+    host = merge_statistics(parts)
+    assert int(total) == host.count == world * 64
+    np.testing.assert_allclose(float(gmean), host.mean, rtol=1e-5)
+    np.testing.assert_allclose(float(gm2), host.m2, rtol=1e-4)
+    stack = torch.empty(3 * world, dtype=torch.float32)
+    dist.all_gather_into_tensor(stack, torch.stack([n.float(), mean, m2]))
+    sn, smean, sm2 = stack.view(world, 3).T
+    ref = merge_moment_stack(sn.to(torch.int32), smean, sm2)
+    assert int(ref[0]) == int(total)
+    np.testing.assert_allclose(float(ref[1]), float(gmean), rtol=1e-6)
+    np.testing.assert_allclose(float(ref[2]), float(gm2), rtol=1e-6)
+
+
+def _chi2_p(mat, U):
+    from scipy import stats as sps
+    uni, counts = np.unique(mat.view([("", mat.dtype)] * mat.shape[1]).ravel(),
+                            return_counts=True)
+    exp = mat.shape[0] / U
+    chi2 = float(((counts - exp) ** 2 / exp).sum()) + (U - uni.shape[0]) * exp
+    return 1 - sps.chi2.cdf(chi2, df=U - 1)
+
+
+def check_uniform(world: int) -> None:
+    from repro_torch.core.overlap import exact_union_size
+    from repro_torch.core.sharding import make_sampler_mesh
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.data.workloads import uq1, uq4
+    mesh = make_sampler_mesh(world=world, device="cpu")
+    uq1_2 = uq1(scale=0.05, overlap=0.5, seed=1, n_joins=2)
+    for wl, plan in ((uq1_2, "static"), (uq1_2, "adaptive"),
+                     (uq4(scale=0.02, seed=0), "static")):
+        est = _exact_cover(wl)
+        U = exact_union_size(wl.cat, wl.joins)
+        s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=11,
+                            round_batch=512, mesh=mesh, plan=plan)
+        N = 120 * U
+        ss = s.sample(N)
+        assert len(ss) == N
+        p = _chi2_p(ss.matrix(), U)
+        assert p > 1e-3, (wl.joins[0].name, p)
+        mm = s.prober.membership_matrix(ss.rows, s.order)
+        assert np.array_equal(np.argmax(mm, axis=1), ss.home)
+        _same_on_every_rank(np.concatenate([ss.matrix(), ss.home[:, None]],
+                                           axis=1), world)
+        if wl.joins[0].name.startswith("UQ1"):
+            plain = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=3,
+                                    device="cpu").sample(8000)
+            fa = np.bincount(plain.home, minlength=2) / len(plain)
+            fb = np.bincount(ss.home, minlength=2) / len(ss)
+            assert np.abs(fa - fb).max() < 0.03, (fa, fb)
+
+
+def check_online(world: int) -> None:
+    from repro_torch.core.online import OnlineUnionSampler
+    from repro_torch.core.sharding import make_sampler_mesh
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=0.05, overlap=0.5, seed=1, n_joins=2)
+    mesh = make_sampler_mesh(world=world, device="cpu")
+    ou = OnlineUnionSampler(wl.cat, wl.joins, seed=5, phi=512, rw_batch=64,
+                            mesh=mesh)
+    out = ou.sample(100)
+    assert len(out) == 100
+    counts = {k: v.count for k, v in ou.estimator.size_stats.items()}
+    assert counts and all(c % (world * 64) == 0 and c > 0
+                          for c in counts.values()), counts
+    _same_on_every_rank(out.matrix(), world)
+
+
+def world2(world: int) -> None:
+    check_exchange(world)
+    check_moment_merge(world)
+
+
+def world4(world: int) -> None:
+    check_exchange(world)
+    check_moment_merge(world)
+    check_uniform(world)
+    check_online(world)

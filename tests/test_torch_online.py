@@ -10,7 +10,7 @@
   UQ4 and with a union-wide rejection predicate.
 * With its own Philox streams the port meets the reference's bar for
   Algorithm 2 (``tests/test_union.py::test_online_union_end_to_end``).
-* Unknown backends, a non-torch estimator and ``mesh=`` raise.
+* Unknown backends and a non-torch estimator raise.
 """
 
 import numpy as np
@@ -127,7 +127,6 @@ def test_online_rejects_what_the_port_does_not_run():
                       (dict(backend="numpy"), "unknown backend"),
                       (dict(estimator="numpy"), "one engine"),
                       (dict(estimator="jax"), "one engine"),
-                      (dict(mesh=object()), "comes with sharding"),
                       (dict(plan="eager"), "plan")):
         with pytest.raises(ValueError, match=match):
             OnlineUnionSampler(cat, specs, device="cpu", **kw)

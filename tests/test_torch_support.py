@@ -16,6 +16,8 @@
   ``randint`` and one ``uniform`` per hop (``DeviceWalkJoin.draw``).
 * :class:`JaxSourceReplay` — the rounds of ``JaxCandidateSource``:
   ``split(key)`` per refill, then the ``DeviceTreeJoin.draw`` schedule.
+* :class:`JaxSourcesReplay` — every join's source as ``JaxBackend``
+  seeds them (join ``i`` from ``seed + i``): the baseline samplers.
 * :class:`JaxOnlineReplay` — both for ``OnlineUnionSampler``: the
   estimator's walks from ``seed + 1`` and join ``i``'s source from
   ``seed + i``, as the reference seeds them.
@@ -123,16 +125,24 @@ class JaxSourceReplay:
         return tree_uniforms(sub, streams, batch)
 
 
-class JaxOnlineReplay(JaxWalkReplay):
-    """``OnlineUnionSampler``'s streams: walks from ``seed + 1``, the source
-    of join ``i`` from ``seed + i``."""
+class JaxSourcesReplay:
+    """The candidate sources of ``JaxBackend(seed=seed)``: join ``i``'s
+    rounds from ``seed + i`` (the baseline samplers' streams)."""
 
     def __init__(self, seed):
-        super().__init__(seed + 1)
         self.seed = seed
 
     def source(self, i):
         return JaxSourceReplay(self.seed + i)
+
+
+class JaxOnlineReplay(JaxWalkReplay, JaxSourcesReplay):
+    """``OnlineUnionSampler``'s streams: walks from ``seed + 1``, the source
+    of join ``i`` from ``seed + i``."""
+
+    def __init__(self, seed):
+        JaxWalkReplay.__init__(self, seed + 1)
+        JaxSourcesReplay.__init__(self, seed)
 
 
 def sample_multiset(ss):
