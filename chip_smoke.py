@@ -93,8 +93,9 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    at UQ1 scale 0.05 against the reference's bar (80·U rows, chi-square
    p > 1e-3); ``[chain]``: ``TorchChainSampler`` over UQ1_J0, kernel draws
    equal to plain draws, the rate of ``sample_uniform(65536)``;
-   ``[replicas]``: two ``seed-split`` ``DistributedUnionSampler`` replicas
-   in one ``SampleService`` (8 × 4096, rows in their home piece only), a
+   ``[replicas]``: two ``seed-split`` ``DistributedUnionSampler`` replicas,
+   each captured by one warm-up call (timed apart), in one
+   ``SampleService`` (8 × 4096, rows in their home piece only), a
    ``hash-partition`` rank 0 of 2 (every row in partition 0) and
    ``merge_streams``; ``[sharded]``: ``SetUnionSampler(mesh=
    make_sampler_mesh(world=1))`` and the adaptive ``ShardedUnionSampler``
@@ -115,9 +116,30 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    scale 0.05 meets the reference's Algorithm-2 bar (``sample(40·U)``:
    ≥ 0.9·U distinct rows, max count ≤ 12× the mean, reuse accepts > 0).
 
+Every served path runs the engine's default round loop,
+``fused_rounds="device"``: one round captured as a CUDA graph per capacity
+class and replayed in chunks, one host sync per chunk; a replay adds the
+kernels recorded in one round to the launch counts.
+
 Between 4 and 5, ``[adaptive]`` serves the same UQ1 state under
 ``plan="adaptive"`` as ``[main]`` serves it under the static plan, with its
-``[profile]`` split and ``[main]``'s numbers beside its own.  The
+``[profile]`` split and ``[main]``'s numbers beside its own.  Then
+``[device-loop]`` holds the device loop bit-equal to the host loop
+(``fused_rounds="host"``) from one seed on the same UQ1 state under both
+plans, over ``sample(n)`` calls that cross capacity classes (rows, homes,
+fingerprints, ``SamplerStats``, per-piece counters, then the carry and the
+Philox offset), with rounds, chunks, host syncs (chunks + 1) and wasted
+rounds per call and the capture seconds per class; under the static plan
+it also prints both modes' engine rates in turns and both modes'
+``[profile]`` split with the device busy share.  The same parity runs on
+UQ4 after ``[residual]`` (B2 on the residual hop) and on UQ2 rejection
+after ``[uq2-rejection]`` (predicate masks).  After each parity run one
+more device-mode call runs under the profiler: its probe kernel events
+(inside graph replays) must equal exactly the launches recorded in one
+captured round × the rounds replayed, which is what the launch counts add.
+``[metrics]`` serves UQ1 with a ``MetricsServer`` on an ephemeral port and
+scrapes ``/healthz`` and ``/metrics`` over localhost: the engine and serve
+series, under the reference's names, equal the engine's counters.  The
 ``kernels`` rows of ``sorted_probe`` and ``probe_pick`` give their launches
 on each served path (``launches_by_path``; the online sampler's walks and
 draws, the random-walk warm-up, the baselines, the chain façade, the
@@ -1576,7 +1598,8 @@ def phase_chain(wl, n: int = 65536) -> dict:
 
 def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
                    samples: int = 4096) -> dict:
-    """Two ``seed-split`` replicas (world 2, ranks 0 and 1) served through
+    """Two ``seed-split`` replicas (world 2, ranks 0 and 1), each warmed by
+    one call of the batch size (its capture, reported apart), served through
     one ``SampleService`` (``requests`` × ``samples``, launch counts set to
     0 just before and read just after; rows in their home piece and no
     earlier one), a ``hash-partition`` rank 0 of 2 (every row in partition
@@ -1590,6 +1613,11 @@ def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
                                     world=2, seed=0, backend=backend,
                                     round_batch=round_batch)
             for r in range(2)]
+    # each replica's batch class is captured before the timed window, as
+    # serve() warms a single sampler: the rate is steady-state serving
+    for r in reps:
+        r.sample(round_batch)
+    capture_s = [r.inner.engine.capture_seconds for r in reps]
     torch.cuda.synchronize()
     build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1617,6 +1645,8 @@ def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
         raise AssertionError("[replicas] merge_streams lost rows or counts")
     return {"requests": requests, "samples": samples,
             "seconds": dt, "samples_per_s": requests * samples / dt,
+            "capture_s": [{str(C): t for C, t in sorted(c.items())}
+                          for c in capture_s],
             "psi": merged_stats.psi(), "launches": launches,
             "hash_partition_rows": len(ss),
             "hash_partition_psi": ss.stats.psi(), "merged_rows": len(merged)}
@@ -1628,7 +1658,8 @@ def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
     ``SetUnionSampler(mesh=make_sampler_mesh(world=1))`` and, on the same
     ``ShardedCatalog``, the adaptive ``ShardedUnionSampler``; each against
     the unsharded engine with the same seed on the same backend (the engine
-    a ``SetUnionSampler`` without a mesh runs): ``calls`` × ``sample(n)``
+    a ``SetUnionSampler`` without a mesh runs, in its host loop, the
+    sharded engine's only mode): ``calls`` × ``sample(n)``
     bit-equal in rows, homes, fingerprints and ``SamplerStats``, with the
     launch counts set to 0 just before the sharded calls and read just
     after.  Then both engines' rates in turns on one state."""
@@ -1650,9 +1681,11 @@ def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
         sharded = (meshed.engine if plan == "static" else ShardedUnionSampler(
             scat, est.cover, seed=0, round_batch=round_batch,
             stats=SamplerStats(), plan=plan))
+        # the unsharded host loop: the sharded engine's own loop mode
         plain = TorchUnionSampler(meshed.backend, est.cover, seed=0,
                                   round_batch=round_batch,
-                                  stats=SamplerStats(), plan=plan)
+                                  stats=SamplerStats(), plan=plan,
+                                  fused_rounds="host")
         torch.cuda.synchronize()
         build.reset_launch_counts()
         got = [sharded.sample(n) for _ in range(calls)]
@@ -1801,6 +1834,233 @@ def phase_sharded_w2(scale: float, round_batch: int, requests: int = 4,
             "wall_s": time.perf_counter() - t0, "ranks": got}
 
 
+def _mode_parity(label: str, wl, est, round_batch: int, calls, backend,
+                 plan: str = "static"):
+    """``fused_rounds="device"`` and ``"host"`` samplers from one seed on
+    ``backend``, over ``calls``: bit-equal rows, homes, ``SamplerStats``,
+    per-piece counters and, at the end, the carry (banks, shortfall, dead
+    flags, streaks, EMAs) and the Philox offset.  Every device-mode call
+    makes its chunks' syncs plus one fetch.  Returns the per-call rounds,
+    chunks, host syncs and wasted rounds, the capture seconds per class,
+    and the two samplers."""
+    import torch
+    from repro_torch.core.union_sampler import SetUnionSampler
+    dev, host = (SetUnionSampler(wl.cat, wl.joins, est.cover, seed=5,
+                                 backend=backend, device="cuda",
+                                 round_batch=round_batch, plan=plan,
+                                 fused_rounds=m) for m in ("device", "host"))
+    per_call = []
+    for n in calls:
+        a, b = dev.sample(n), host.sample(n)
+        same = (all(np.array_equal(a.rows[x], b.rows[x]) for x in a.attrs)
+                and np.array_equal(a.home, b.home)
+                and np.array_equal(a.fingerprint, b.fingerprint)
+                and dev.stats.as_dict() == host.stats.as_dict()
+                and np.array_equal(dev.engine.piece_stats,
+                                   host.engine.piece_stats))
+        if not same:
+            raise AssertionError(f"[{label}] {plan}: the device loop differs "
+                                 f"from the host loop at sample({n})")
+        e = dev.engine
+        if e.last_host_syncs != e.last_chunks + 1:
+            raise AssertionError(f"[{label}] {e.last_host_syncs} host syncs "
+                                 f"for {e.last_chunks} chunks")
+        per_call.append({"n": n, "rounds": e.last_rounds,
+                         "chunks": e.last_chunks,
+                         "host_syncs": e.last_host_syncs,
+                         "wasted_rounds": e.last_wasted_rounds,
+                         "host_loop_syncs": host.engine.last_host_syncs})
+    sd, sh = dev.engine._state, host.engine._state
+    for f in ("owed", "dead", "streak", "head", "count", "ema"):
+        x, y = getattr(sd, f), getattr(sh, f)
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"[{label}] {plan}: carry {f} differs")
+    if not torch.equal(sd.bank[:, :-1], sh.bank[:, :-1]):
+        raise AssertionError(f"[{label}] {plan}: the banks differ")
+    if (dev.engine.uniforms.generator.get_offset()
+            != host.engine.uniforms.generator.get_offset()):
+        raise AssertionError(f"[{label}] {plan}: the Philox streams differ")
+    return {"plan": plan, "bit_equal": True, "calls": per_call,
+            "capture_s": {str(C): s for C, s in
+                          sorted(dev.engine.capture_seconds.items())}
+            }, dev, host
+
+
+# the probe kernels' event names in a profiler trace, by launch-count key
+PROBE_EVENTS = (("sorted_probe", "sorted_probe_kernel"),
+                ("probe_pick", "probe_pick_kernel"))
+
+
+def _replay_events(label: str, dev, n: int, required) -> dict:
+    """One device-mode ``dev.sample(n)`` under the profiler, its capacity
+    class already captured, so its probes run only inside graph replays:
+    each probe's kernel events must equal exactly the launches recorded in
+    one captured round × the rounds replayed, and each kernel in
+    ``required`` must be among them."""
+    eng = dev.engine
+    C = 1 << max(10, (n - 1).bit_length())
+    if C not in eng.capture_seconds:
+        raise AssertionError(f"[{label}] class {C} was not captured before "
+                             "the profiled call")
+    ev = _device_events(lambda: dev.sample(n), 1)
+    replays = eng.last_rounds + eng.last_wasted_rounds
+    per_round = eng._buffers[C].replay_launches
+    seen = {kern: sum(1 for name, _ in ev if match in name)
+            for kern, match in PROBE_EVENTS}
+    want = {kern: per_round[kern] * replays for kern, _ in PROBE_EVENTS}
+    if seen != want or not all(want[k] > 0 for k in required):
+        raise AssertionError(f"[{label}] kernel events {seen} in a call of "
+                             f"{replays} graph replays of {per_round}")
+    return {"plan": eng.plan, "graph_replays": replays,
+            "kernel_events": seen, "launches_per_replay": per_round,
+            "device_events": len(ev)}
+
+
+# the device loop's parity calls: 8192 and odd sizes that leave its
+# capacity class (8192 → 16384 → 4096) and come back
+DEVICE_LOOP_CALLS = (8192, 5000, 12000, 8192, 3333)
+
+
+def phase_device_loop(wl, est, round_batch: int, backend) -> dict:
+    """``[device-loop]`` on UQ1: both plans' device loop bit-equal to the
+    host loop (:func:`_mode_parity`) and, in one more device-mode call of
+    each plan, the probe kernel events of its graph replays equal to the
+    launches counted (:func:`_replay_events`); under the static plan, the
+    launch counts of device-mode calls (set to 0 just before, read just
+    after), the two modes' engine rates in turns, and each mode's
+    ``[profile]`` split with its device busy share."""
+    import torch
+    from repro_torch.kernels import build
+    out = {}
+    for plan in ("static", "adaptive"):
+        out[plan], dev, host = _mode_parity(
+            "device-loop", wl, est, round_batch, DEVICE_LOOP_CALLS, backend,
+            plan=plan)
+        out[plan]["replay"] = _replay_events(
+            "device-loop", dev, round_batch, ("sorted_probe", "probe_pick"))
+        if plan != "static":
+            continue
+        n = round_batch
+
+        def rate(smp, k=4):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                smp.sample(n)
+            torch.cuda.synchronize()
+            return k * n / (time.perf_counter() - t0)
+        dev.sample(n)
+        host.sample(n)
+        rates = [["device", rate(dev)], ["host", rate(host)],
+                 ["host", rate(host)]]
+        build.reset_launch_counts()
+        rates.append(["device", rate(dev)])
+        out["launches"] = _launches()           # the device-mode calls only
+        _require_probes("device-loop", out["launches"])
+        out["engine_samples_per_s_in_turns"] = rates
+        dev_rate, host_rate = ((rates[0][1] + rates[3][1]) / 2,
+                               (rates[1][1] + rates[2][1]) / 2)
+        out["profile_device"] = phase_profile(dev, n, n / dev_rate)
+        out["profile_host"] = phase_profile(host, n, n / host_rate)
+    return out
+
+
+def _scrape(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _series(text: str) -> dict:
+    """Prometheus text → ``{"name{labels}": value}``."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, val = ln.rsplit(" ", 1)
+            out[key] = float(val)
+    return out
+
+
+def phase_metrics(wl, est, round_batch: int, backend, requests: int = 8,
+                  samples: int = 4096) -> dict:
+    """``[metrics]``: a device-loop UQ1 sampler, its batch class captured
+    by one call first, served through ``SampleService`` with a ``MetricsServer`` on an ephemeral port, on a
+    registry of its own.  ``/healthz`` and ``/metrics`` are scraped over
+    localhost while the service is live (the engine and serve series under
+    the reference's names, the request count), then ``/metrics`` again
+    after the service stops (its producer quiesced): every engine series
+    equals the engine's own counters and every serve series the requests
+    made."""
+    from repro_torch import obs
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.serve import SampleService
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=9,
+                            backend=backend, device="cuda",
+                            round_batch=round_batch)
+        s.sample(round_batch)       # capture the batch class before serving
+        with obs.MetricsServer(reg, port=0) as srv:
+            t0 = time.perf_counter()
+            with SampleService(s, batch=round_batch, prefetch=2) as svc:
+                for _ in range(requests):
+                    svc.request(samples)
+                health = _scrape(srv.url + "/healthz")
+                live_status, live_text = _scrape(srv.url + "/metrics")
+            dt = time.perf_counter() - t0
+            _, text = _scrape(srv.url + "/metrics")
+            port = srv.port
+    finally:
+        obs.set_registry(prev)
+    live = _series(live_text)
+    if health != (200, "ok\n") or live_status != 200:
+        raise AssertionError(f"[metrics] /healthz {health}, /metrics "
+                             f"{live_status}")
+    names = ("repro_engine_piece_draws_total", "repro_engine_rounds_total",
+             "repro_engine_samples_total", "repro_engine_piece_bank_hwm",
+             "repro_round_waste_ratio", "repro_engine_dispatch_seconds",
+             "repro_engine_drain_seconds", "repro_serve_request_seconds",
+             "repro_serve_requests_total", "repro_serve_samples_total",
+             "repro_serve_queue_depth", "repro_serve_request_seconds_p99",
+             "repro_serve_engine_stat")
+    missing = [m for m in names if f"# TYPE {m} " not in live_text]
+    if missing or live["repro_serve_requests_total"] != requests:
+        raise AssertionError(f"[metrics] live scrape: missing {missing}, "
+                             f"requests {live.get('repro_serve_requests_total')}")
+    got = _series(text)
+    eng, st = s.engine, s.stats
+    want = {"repro_engine_rounds_total": eng.total_rounds,
+            "repro_engine_samples_total": st.samples_emitted,
+            "repro_serve_requests_total": requests,
+            "repro_serve_samples_total": requests * samples,
+            'repro_serve_engine_stat{replica="0",field="candidate_draws"}':
+                st.candidate_draws,
+            'repro_serve_engine_stat{replica="0",field="iterations"}':
+                st.iterations}
+    for j, name in enumerate(eng.order):
+        for i, m in enumerate(("draws", "accepts", "residual_rejects",
+                               "bank_drained")):
+            key = f'repro_engine_piece_{m}_total{{join="{name}"}}'
+            if eng.piece_stats[j, i] or key in got:
+                want[key] = int(eng.piece_stats[j, i])
+        want[f'repro_engine_piece_bank_hwm{{join="{name}"}}'] = \
+            int(eng.piece_stats[j, 4])
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"[metrics] series differ from the engine's "
+                             f"counters: {bad}")
+    return {"port": port, "requests": requests, "samples": samples,
+            "seconds": dt, "healthz": health[1].strip(),
+            "series_checked": len(want), "series_total": len(got),
+            "engine_rounds_total": eng.total_rounds,
+            "engine_samples_total": st.samples_emitted,
+            "host_syncs": eng.host_syncs,
+            "capture_s": {str(C): t for C, t in
+                          sorted(eng.capture_seconds.items())},
+            "request_p50_s": got.get("repro_serve_request_seconds_p50"),
+            "request_p99_s": got.get("repro_serve_request_seconds_p99")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=float, default=UQ1_SCALE,
@@ -1922,6 +2182,17 @@ def main(argv=None) -> int:
     print("[adaptive] " + json.dumps(ad_out), flush=True)
     mark("adaptive")
 
+    # the device loop against the host loop on the same UQ1 state, then
+    # /metrics read from a live service on it
+    dl_out = phase_device_loop(wl1, est1, args.round_batch,
+                               main_sampler.backend)
+    path_launches("UQ1 device loop", dl_out)
+    print("[device-loop] " + json.dumps(dl_out), flush=True)
+    mark("device-loop")
+    met_out = phase_metrics(wl1, est1, args.round_batch, main_sampler.backend)
+    print("[metrics] " + json.dumps(met_out), flush=True)
+    mark("metrics")
+
     # 6. the kernel entry point; segdegree and decode attention are reached
     # only through it (the UQ1 path launches neither)
     sweeps = phase_ops_sweeps()
@@ -1942,10 +2213,17 @@ def main(argv=None) -> int:
                        args.round_batch, ("probe_pick",),
                        before_serve=lambda s: pick_row.update(
                            phase_residual_probe(s)))
-    for k in ("sampler", "wl", "est"):
-        res_out.pop(k)
+    res_sampler, wl4, est4 = (res_out.pop(k) for k in ("sampler", "wl",
+                                                       "est"))
     path_launches("UQ4 residual", res_out)
     print("[residual] " + json.dumps(res_out), flush=True)
+    dl4, dev4, _ = _mode_parity("device-loop", wl4, est4, args.round_batch,
+                                (8192, 3333), res_sampler.backend)
+    # UQ4's tree and residual hops all run probe_pick (no sorted_probe)
+    dl4["replay"] = _replay_events("device-loop", dev4, args.round_batch,
+                                   ("probe_pick",))
+    print("[device-loop] UQ4 " + json.dumps(dl4), flush=True)
+    del res_sampler, wl4, est4, dev4
     mark("residual")
 
     # 8. a branching tree
@@ -2115,12 +2393,20 @@ def main(argv=None) -> int:
                        before_serve=uq2_checks,
                        built=uq2_exact("rejection", est2))
     rej_out.update(uq2_pre)
-    for k in ("sampler", "wl", "est"):
-        rej_out.pop(k)
+    rej_sampler, wl2r, _ = (rej_out.pop(k) for k in ("sampler", "wl", "est"))
     if rej_out["pred_rejects"] <= 0:
         raise AssertionError("[uq2-rejection] no predicate rejections")
     path_launches("UQ2 rejection", rej_out)
     print("[uq2-rejection] " + json.dumps(rej_out), flush=True)
+    dl2, dev2, _ = _mode_parity("device-loop", wl2r, est2, args.round_batch,
+                                (8192, 3333), rej_sampler.backend)
+    if dev2.stats.pred_rejects <= 0:
+        raise AssertionError("[device-loop] UQ2 rejection: no predicate "
+                             "rejections")
+    dl2["replay"] = _replay_events("device-loop", dev2, args.round_batch,
+                                   ("sorted_probe", "probe_pick"))
+    print("[device-loop] UQ2 rejection " + json.dumps(dl2), flush=True)
+    del rej_sampler, wl2r, dev2
     mark("uq2-rejection")
 
     # ... and record-mode membership over UQ2 pushdown

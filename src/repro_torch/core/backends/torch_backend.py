@@ -19,22 +19,30 @@ bottom-up:
   sorted 32-bit row fingerprints (held as int64 so sorting and
   ``torch.searchsorted`` see the uint32 order) with a 32-bit secondary and a
   ``kmax``-wide duplicate window, ANDed with a join's rejection predicates.
-* :class:`TorchUnionSampler` — Algorithm-1 rounds driven from Python with
-  every carry on the device: per-piece shortfall, FIFO ring-buffer surplus
-  banks, dead-piece flags, the 6-wide stats vector and the per-piece
-  counters.  Each round ends in one host sync (the ``total < n`` test), the
-  cadence of the reference's ``fused_rounds="host"`` loop, so the exit round
-  is exact; ``sample(n)`` adds one device→host fetch of the result.
+* :class:`TorchUnionSampler` — Algorithm-1 rounds with every carry on the
+  device in static buffers: per-piece shortfall, FIFO ring-buffer surplus
+  banks, dead-piece flags, the stats vector and the per-piece counters.
+  One round is one step with no host sync, gated off once the call is
+  done.  ``fused_rounds="device"`` (the default, the reference's default
+  engine) captures that step as a CUDA graph per capacity class and
+  replays it in chunks of rounds, one host sync per chunk; the uniforms of
+  the gated rounds are rewound, so the stream goes on where the host loop's
+  would.  ``fused_rounds="host"`` syncs after every round (the reference's
+  debugging twin).  The two give bit-identical samples, stats and carry;
+  ``sample(n)`` adds one device→host fetch of the result, where the
+  engine's counters also reach the metrics registry (:mod:`repro_torch.obs`).
   :class:`TorchRecordUnionSampler` keeps the lazy ``orig_join`` record as a
-  sorted-fingerprint multiset instead, with the same cadence.
+  sorted-fingerprint multiset instead, host-driven in either mode.
 * :class:`TorchCandidateSource` — fixed-width device rounds of one tree
   join, buffered on the host and served in slices to the host-driven
   ONLINE-UNION sampler (``TorchBackend.source``).
 
 Random numbers come from a **uniform source**: :class:`PhiloxUniforms`
-(a ``torch.Generator`` on the device) in production; tests pass an object
-with the same methods that replays the reference's JAX key schedule, and the
-engine then reproduces the reference position for position.
+(a ``torch.Generator`` on the device, registered with the engine's CUDA
+graphs) in production; tests pass an object with the same methods that
+replays the reference's JAX key schedule, and the engine then reproduces
+the reference position for position (on the card the device loop needs the
+Philox source: a graph cannot replay host-made uniforms).
 
 Limits: ``method="ew"`` weights, non-negative dict-encoded values whose
 packed edge domains fit in int32.  A join outside the int32 domain raises a
@@ -45,13 +53,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ... import obs
 from ...device import resolve_device
+from ...kernels import build
 from ...kernels.probe import (probe_pick, probe_pick_plain, sorted_probe,
                               sorted_probe_plain)
 from .. import planner
@@ -660,13 +671,21 @@ class TorchCandidateSource:
 
 class PhiloxUniforms:
     """Production uniform source: one ``torch.Generator`` on the device
-    (Philox on CUDA).  A test may pass any object with the same two
-    methods, e.g. one that replays the reference's JAX key schedule."""
+    (Philox on CUDA).  A test may pass any object with the same methods,
+    e.g. one that replays the reference's JAX key schedule.
+
+    :meth:`mark` and :meth:`rewind` let the device round loop
+    (``fused_rounds="device"``) take back the uniforms that its gated
+    rounds drew at the end of a call: on CUDA by moving the Philox offset
+    (one round advances it by a fixed increment, measured once per round
+    shape), on the CPU by restoring the generator's state and drawing the
+    kept rounds again."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
+        self._round_inc: Dict[Tuple, int] = {}
 
     def round(self, slot: int, shapes: Sequence[Tuple[int, int]]
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -677,6 +696,29 @@ class PhiloxUniforms:
                           device=self.device)
         parts = torch.split(flat, sizes)
         return parts[0], [p.view(s, b) for p, (s, b) in zip(parts[1:], shapes)]
+
+    def mark(self):
+        """The stream's position, for :meth:`rewind`."""
+        if self.device.type == "cuda":
+            return self.generator.get_offset()
+        return self.generator.get_state()
+
+    def rewind(self, mark, rounds: int, slot: int,
+               shapes: Sequence[Tuple[int, int]]) -> None:
+        """Put the stream where ``rounds`` calls of ``round(slot, shapes)``
+        starting at ``mark`` leave it."""
+        if self.device.type != "cuda":
+            self.generator.set_state(mark)
+            for _ in range(rounds):
+                self.round(slot, shapes)
+            return
+        key = (int(slot), tuple(shapes))
+        inc = self._round_inc.get(key)
+        if inc is None and rounds:
+            self.generator.set_offset(mark)
+            self.round(slot, shapes)
+            inc = self._round_inc[key] = self.generator.get_offset() - mark
+        self.generator.set_offset(mark + rounds * (inc or 0))
 
     def permutation(self, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=self.generator, device=self.device)
@@ -697,7 +739,7 @@ class PhiloxUniforms:
 
 
 # ---------------------------------------------------------------------------
-# Algorithm-1 rounds (static plan, probe membership)
+# Algorithm-1 rounds (static or adaptive plan, probe membership)
 # ---------------------------------------------------------------------------
 
 
@@ -711,6 +753,18 @@ _STAT_FIELDS = ("iterations", "candidate_draws", "cover_rejects",
 PIECE_STAT_FIELDS = ("draws", "accepts", "residual_rejects",
                      "bank_drained", "bank_hwm")
 
+# Layout of a capacity class's per-call counter vector (int64): the target
+# n, rows emitted, rounds run, the unreachable-cover flag, then the six
+# SamplerStats fields and the (nj, 5) per-piece counters
+_CTR_N, _CTR_TOTAL, _CTR_ROUNDS, _CTR_FAIL, _CTR_STATS = range(5)
+
+# gated rounds run on a side stream before a capture (PyTorch's CUDA-graph
+# warm-up): they build whatever the round builds on first use
+_CAPTURE_WARMUP_ROUNDS = 2
+# one capture at a time in the process (CUDA's rule): samplers in several
+# producer threads (replicas in one SampleService) capture in turn
+_CAPTURE_LOCK = threading.Lock()
+
 
 def _cover_cum(probs_base: torch.Tensor, dead: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -720,23 +774,27 @@ def _cover_cum(probs_base: torch.Tensor, dead: torch.Tensor
     return torch.cumsum(p, 0) / torch.clamp(s, min=1e-30), s <= 0
 
 
-PIECE_BATCH_SLACK = 1.5     # head-room of a piece's width over its share
+def _piece_batches(probs, round_batch: int, balance: str,
+                   slack: float) -> Tuple[int, ...]:
+    """Static per-join candidate widths for one round.
 
-
-def _piece_batches(probs, round_batch: int) -> Tuple[int, ...]:
-    """Static per-join candidate widths for one round: proportional to the
-    cover selection probability (head-room ``PIECE_BATCH_SLACK``, floor 256,
-    multiples of 128, at most ``round_batch``) — the reference's
-    ``balance="cover"``.  Undershoot is harmless: the shortfall carry tops a
-    piece up next round."""
+    ``balance="cover"`` sizes each join's draw batch proportionally to its
+    cover selection probability (head-room ``slack``, floor 256, rounded to
+    multiples of 128 to bound shape variety) instead of drawing
+    ``round_batch`` candidates from *every* join — a piece with 5 %
+    selection mass can never emit more than ~5 % of the round's slots.
+    Undershoot is harmless: the shortfall carry tops the piece up next
+    round.  ``balance="full"`` keeps the uniform-width behaviour."""
     nj = len(probs)
+    if balance != "cover":
+        return (int(round_batch),) * nj
     p = np.maximum(np.asarray(probs, np.float64), 0)
     s = p.sum()
     if s <= 0:
         return (int(round_batch),) * nj
     out = []
     for j in range(nj):
-        want = int(np.ceil(PIECE_BATCH_SLACK * (p[j] / s) * round_batch))
+        want = int(np.ceil(slack * (p[j] / s) * round_batch))
         b = max(256, ((want + 127) // 128) * 128)
         out.append(min(int(round_batch), b))
     return tuple(out)
@@ -749,10 +807,12 @@ def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
     Rows travel as ``(rows, A+1)`` int32 matrices (last column = home
     piece).  ``out`` has a trash row at index ``trash`` and ``bank`` is
     ``(nj, cap + 1, A+1)`` with a trash slot at ``cap``: masked scatters go
-    there instead of being dropped.  Emission order: pieces in cover order;
-    per piece the ``dt`` banked rows (FIFO, oldest first) then the ``ft``
-    fresh rows.  Surplus accepts are pushed at the ring tail.  ``bank`` is
-    updated in place; the banked rows are gathered before any push."""
+    there instead of being dropped, and so do rows past the end of ``out``
+    (the reference's ``mode="drop"``).  Emission order: pieces in cover
+    order; per piece the ``dt`` banked rows (FIFO, oldest first) then the
+    ``ft`` fresh rows.  Surplus accepts are pushed at the ring tail.
+    ``out`` and ``bank`` are updated in place; the banked rows are gathered
+    before any push."""
     nj = dt.shape[0]
     dev = dt.device
     take = dt + ft
@@ -761,7 +821,8 @@ def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
     r = torch.arange(W, device=dev)
     bmask = r[None, :] < dt[:, None]
     bidx = (head[:, None] + r[None, :]) % cap
-    bdst = torch.where(bmask, base[:, None] + r[None, :], trash).reshape(-1)
+    bdst = torch.clamp(torch.where(bmask, base[:, None] + r[None, :], trash),
+                       max=trash).reshape(-1)
     jrow = torch.arange(nj, device=dev)[:, None]
     bvals = bank[jrow, bidx]                          # (nj, W, A+1) copy
     out[bdst] = bvals.reshape(nj * W, -1)
@@ -769,7 +830,8 @@ def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
     for j in range(nj):
         cj = cols[j]
         rj = torch.arange(cj.shape[0], device=dev)
-        fdst = torch.where(rj < ft[j], fresh_base[j] + rj, trash)
+        fdst = torch.clamp(torch.where(rj < ft[j], fresh_base[j] + rj, trash),
+                           max=trash)
         pidx = torch.where((rj >= ft[j]) & (rj < ft[j] + push[j]),
                            (head[j] + count[j] + rj - ft[j]) % cap, cap)
         out[fdst] = cj
@@ -781,7 +843,9 @@ def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
 
 @dataclasses.dataclass
 class _LoopState:
-    """Device carry that persists across sample() calls."""
+    """Device carry that persists across sample() calls.  Its tensors are
+    static: every round updates them in place (a captured round holds their
+    addresses)."""
 
     owed: torch.Tensor      # (nj,) int64 per-piece carried shortfall
     dead: torch.Tensor      # (nj,) bool
@@ -790,6 +854,34 @@ class _LoopState:
     head: torch.Tensor      # (nj,) int64
     count: torch.Tensor     # (nj,) int64
     ema: Optional[torch.Tensor] = None  # (nj, 4) int32, plan="adaptive" only
+
+
+class _CallBuffers:
+    """The static per-call buffers of one capacity class ``C``.
+
+    ``ctr`` is one int64 vector (layout ``_CTR_*``) whose views are the
+    target ``n``, ``total``, ``rounds``, ``fail``, the stats vector and the
+    per-piece matrix, so a call resets them in one op and a chunk's sync
+    reads ``(total, rounds, fail)`` in one copy; ``out`` is ``(C + 1,
+    A+1)`` with the trash row at ``C``.  In device mode on the card the
+    class also holds its CUDA graph of one round, the kernel launches one
+    replay makes and the capture's wall seconds."""
+
+    def __init__(self, C: int, nj: int, width: int, device):
+        self.C = C
+        s = _CTR_STATS + len(_STAT_FIELDS)
+        self.ctr = torch.zeros(s + nj * len(PIECE_STAT_FIELDS),
+                               dtype=torch.int64, device=device)
+        self.n, self.total, self.rounds, self.fail = (
+            self.ctr[i] for i in (_CTR_N, _CTR_TOTAL, _CTR_ROUNDS, _CTR_FAIL))
+        self.stats = self.ctr[_CTR_STATS:s]
+        self.pstats = self.ctr[s:].view(nj, len(PIECE_STAT_FIELDS))
+        self.out = torch.zeros((C + 1, width), dtype=torch.int32,
+                               device=device)
+        self.graph = None
+        self.replay_launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.last_rounds = 0        # the previous call's rounds (chunk size)
 
 
 class _ReadySample:
@@ -803,47 +895,62 @@ class _ReadySample:
 
 
 class _PendingSample:
-    """A finished round loop whose outputs still live on the device;
+    """A finished round loop whose outputs still live on the device: the
+    shuffled rows and the call's counters, gathered into one int64 tensor
+    at dispatch (the next call reuses the class's static buffers).
     ``result()`` does the one device→host fetch and builds the SampleSet."""
 
-    def __init__(self, sampler, n, out, total, rounds, fail, stats, pstats,
-                 shuffle):
+    def __init__(self, sampler, n, fetch, total, rounds, fail):
         self._sampler = sampler
         self._n = int(n)
-        self._out, self._total, self._rounds, self._fail = out, total, rounds, fail
-        self._stats, self._pstats, self._shuffle = stats, pstats, shuffle
+        self._fetch = fetch
+        self._total, self._rounds, self._fail = total, rounds, fail
         self._done = None
 
     def result(self):
         if self._done is not None:
             return self._done
         s = self._sampler
+        t0 = time.perf_counter() if obs.enabled() else 0.0
         if self._fail:
             raise RuntimeError("all cover pieces unreachable")
+        # rounds, like every counter, are folded at the fetch (a dispatched
+        # call that is never drained adds nothing)
         s.last_rounds = self._rounds
+        s.total_rounds += self._rounds
         if self._total < self._n:
             raise RuntimeError("TorchUnionSampler: top-up budget exhausted")
         from ..relation import fingerprint128
         from ..union_sampler import SampleSet
         with s._on_device():
-            nj = len(s.order)
-            counters = torch.cat([self._stats, self._pstats.reshape(-1)]).cpu()
-            mat = self._out[:self._n][self._shuffle].cpu().numpy()
+            flat = self._fetch.cpu().numpy()
         s.last_host_syncs += 1
         s.host_syncs += 1
-        counters = counters.numpy()
-        for f, v in zip(_STAT_FIELDS, counters[:len(_STAT_FIELDS)]):
+        nj, width = len(s.order), len(s.attrs) + 1
+        k = self._n * width
+        mat = flat[:k].reshape(self._n, width)
+        counters = flat[k:]
+        ns, npc = len(_STAT_FIELDS), nj * len(PIECE_STAT_FIELDS)
+        for f, v in zip(_STAT_FIELDS, counters[:ns]):
             setattr(s.stats, f, getattr(s.stats, f) + int(v))
-        s._fold_piece_stats(counters[len(_STAT_FIELDS):].reshape(nj, -1),
-                            samples=self._n)
-        mat = mat.astype(np.int64)
+        ema = (counters[ns + npc:].reshape(nj, -1) if s.plan == "adaptive"
+               else None)
+        s._fold_piece_stats(counters[ns:ns + npc].reshape(nj, -1),
+                            rounds=self._rounds, samples=self._n, ema=ema)
         rows = {a: np.ascontiguousarray(mat[:, i]) for i, a in enumerate(s.attrs)}
         home = np.ascontiguousarray(mat[:, -1])
         fp = fingerprint128([rows[a] for a in sorted(s.attrs)])
         self._done = SampleSet(list(s.attrs), rows, home, fp, s.stats)
+        if obs.enabled():
+            s._obs_handles()["drain"].observe(time.perf_counter() - t0)
         return self._done
 
 
+def _dispatch_annotation():
+    """``torch.profiler`` range around one dispatch (``REPRO_OBS_TRACE=1``)."""
+    if obs.trace_annotations_enabled():
+        return torch.profiler.record_function("repro/sample_dispatch")
+    return contextlib.nullcontext()
 
 
 class TorchUnionSampler:
@@ -868,19 +975,41 @@ class TorchUnionSampler:
     The shortfall of piece ``j`` stays assigned to piece ``j`` across
     rounds (never re-drawn from the selection distribution), and the banks
     are FIFOs over i.i.d. streams, so the output is uniform over the union.
-    Rounds are driven from Python; each ends in one host sync.
+
+    The round is one step over static buffers with no host sync
+    (:meth:`_round_step`), gated off once the call is done.
+    ``fused_rounds="device"`` (default) captures it per capacity class as a
+    CUDA graph and replays it ``K`` rounds at a time, with one host sync per
+    chunk on ``(total, rounds, fail)`` — the reference's one-program
+    ``lax.while_loop`` cut into chunks; the uniforms of the gated rounds of
+    the last chunk are rewound, so the stream continues where the host
+    loop's would.  ``fused_rounds="host"`` runs the same step with a sync
+    after every round (the reference's debugging twin).  Both give the same
+    samples, homes, stats and carry from the same seed.  On the CPU the
+    device mode runs the step eagerly in the same chunks.
 
     ``plan="adaptive"`` widens the selection slot (``adaptive_slot``), sizes
     the draw widths from the seeded acceptance rates (``alloc_batches``) and
     carries per-piece acceptance EMAs on the device; each round a piece
     draws only a count-derived prefix of its i.i.d. slots (``budget_for``),
     and the EMAs take one step from the round's counts (``ema_update``).
+
+    ``chunk_rounds`` (attribute, default ``None``) forces ``K``; by default
+    ``K`` is the previous call's round count in the class (1 at first), and
+    a further chunk of the same call is sized by the rows still owed at the
+    call's yield per round.
     """
 
     def __init__(self, backend: TorchBackend, cover, seed: int = 0,
-                 round_batch: int = 4096, stats=None, uniforms=None,
-                 predicate=None, plan: str = "static",
-                 surplus_cap: Optional[int] = None):
+                 round_batch: int = 4096, dead_rounds: int = 8,
+                 max_rounds: int = 4096, surplus_cap: Optional[int] = None,
+                 stats=None, fused_rounds: str = "device",
+                 balance: str = "cover", balance_slack: float = 1.5,
+                 uniforms=None, predicate=None, plan: str = "static"):
+        if fused_rounds not in ("device", "host"):
+            raise ValueError("fused_rounds must be 'device' or 'host', got "
+                             f"{fused_rounds!r}")
+        self.fused_rounds = fused_rounds
         self.backend = backend
         self.device = backend.device
         self.cover = cover
@@ -890,10 +1019,8 @@ class TorchUnionSampler:
         self.uniforms = (uniforms if uniforms is not None
                          else PhiloxUniforms(seed, self.device))
         self.round_batch = int(round_batch)
-        # the reference's defaults: a piece yielding nothing for 8 rounds is
-        # dead; a call gives up after 4096 rounds; banks hold 8 rounds' slots
-        self.dead_rounds = 8
-        self.max_rounds = 4096
+        self.dead_rounds = int(dead_rounds)
+        self.max_rounds = int(max_rounds)
         self.surplus_cap = max(1, 8 * self.round_batch if surplus_cap is None
                                else int(surplus_cap))
         if stats is None:
@@ -915,7 +1042,8 @@ class TorchUnionSampler:
         s = base.sum()
         self._probs_base = torch.as_tensor(
             (base / s if s > 0 else base).astype(np.float32), device=self.device)
-        self.piece_batches = _piece_batches(base, self.round_batch)
+        self.piece_batches = _piece_batches(base, self.round_batch, balance,
+                                            balance_slack)
         if plan not in ("static", "adaptive"):
             raise ValueError(f"plan must be 'static' or 'adaptive', got "
                              f"{plan!r}")
@@ -937,13 +1065,25 @@ class TorchUnionSampler:
         self._drain_w = min(self.round_batch, 256)
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
+        self._zero = torch.zeros((), dtype=torch.int64, device=self.device)
         self.piece_stats = np.zeros((len(self.order), len(PIECE_STAT_FIELDS)),
                                     np.int64)
         self.last_rounds = 0
         self.total_rounds = 0
         self.last_host_syncs = 0
         self.host_syncs = 0
+        # per call: chunks of rounds between syncs (host mode: one per
+        # round) and gated rounds replayed (device mode); a call makes
+        # last_chunks + 1 host syncs (the chunks' syncs and the one fetch)
+        self.last_chunks = 0
+        self.last_wasted_rounds = 0
+        self.wasted_rounds = 0
+        self.chunk_rounds: Optional[int] = None
+        self.capture_seconds: Dict[int, float] = {}
         self._state: Optional[_LoopState] = None
+        self._buffers: Dict[int, _CallBuffers] = {}
+        self._graph_pool = None
+        self._obs_metrics = None
 
     def _set_piece_batches(self, piece_batches) -> None:
         """Set the per-join draw widths and the device constants derived
@@ -976,6 +1116,10 @@ class TorchUnionSampler:
         pok = pf(rows)
         return acc & pok, (acc & ~pok).sum()
 
+    def _round_shapes(self) -> List[Tuple[int, int]]:
+        """The ``(streams, batch)`` uniform blocks of one round."""
+        return [(t.n_streams, b) for t, b in zip(self.trees, self.piece_batches)]
+
     # -- one round -------------------------------------------------------------
     def _round_core(self, probs_cum: torch.Tensor, owed: torch.Tensor,
                     extra: torch.Tensor, ema: Optional[torch.Tensor] = None,
@@ -990,9 +1134,8 @@ class TorchUnionSampler:
         nj = len(self.trees)
         dev = self.device
         members = [self.backend.members[n] for n in self.order]
-        u_sel, u_joins = self.uniforms.round(
-            self._slot_width,
-            [(t.n_streams, b) for t, b in zip(self.trees, self.piece_batches)])
+        u_sel, u_joins = self.uniforms.round(self._slot_width,
+                                             self._round_shapes())
         pick = torch.clamp(torch.searchsorted(probs_cum, u_sel, side="right"),
                            0, nj - 1)
         valid = (torch.arange(self._slot_width, device=dev) < extra).to(torch.int64)
@@ -1034,6 +1177,75 @@ class TorchUnionSampler:
         return (cols, torch.stack(okc), torch.stack(resc), torch.stack(accc),
                 torch.stack(predc), need, budget)
 
+    def _round_step(self, cb: _CallBuffers) -> None:
+        """One Algorithm-1 round on the static buffers, with no host sync.
+
+        Every write is gated by ``active = (total < n) & (rounds <
+        max_rounds) & ~fail``, computed at the start.  An inactive round
+        still draws (the device loop rewinds its uniforms), but its targets
+        are 0, so every scatter goes to a trash row, and the small state
+        keeps its value through ``torch.where``; the banks and the output
+        are never copied.  The host loop never runs an inactive round."""
+        st = self._state
+        cap = self.surplus_cap
+        adaptive = self.plan == "adaptive"
+        zero = self._zero
+        active = (cb.total < cb.n) & (cb.rounds < self.max_rounds) & (cb.fail == 0)
+        probs_cum, bad = _cover_cum(self._probs_base, st.dead)
+        extra = torch.where(active, torch.clamp(
+            cb.n - cb.total - st.owed.sum(), 0, self._slot_width), zero)
+        cols, okc, resc, accc, predc, need, budget = self._round_core(
+            probs_cum, st.owed, extra, st.ema, st.count)
+        # `extra` is 0 once total >= n, but the carried `owed` is not
+        need = torch.where(active, need, zero)
+        acc = torch.where(active, accc, zero)
+        # bank take (FIFO, capped) → fresh take → carried shortfall
+        dt = torch.clamp(torch.minimum(need, st.count), max=self._drain_w)
+        ft = torch.minimum(need - dt, acc)
+        total, head, count = _emit_and_bank(
+            cb.out, cb.total, st.bank, st.head, st.count, cols, dt, ft, acc,
+            cap, cb.C, min(self._drain_w, cap))
+        shortfall = need - dt - ft
+        # dead-piece bookkeeping: stray picks on dead pieces are dropped;
+        # a live piece that keeps a target but yields nothing for
+        # dead_rounds rounds is empty in reality — drop it
+        dropped = torch.where(st.dead, shortfall, zero).sum()
+        shortfall = torch.where(st.dead, zero, shortfall)
+        trig = (shortfall > 0) & (acc == 0) & (count == 0)
+        streak = torch.where(st.dead, st.streak,
+                             torch.where(trig, st.streak + 1, zero))
+        newly = ~st.dead & (streak >= self.dead_rounds) & active
+        dropped = dropped + torch.where(newly, shortfall, zero).sum()
+        shortfall = torch.where(newly, zero, shortfall)
+        # adaptive rounds draw only the budgeted slots; static rounds
+        # spend the full width every round
+        drawn = budget.sum() if adaptive else zero + int(sum(self.piece_batches))
+        cb.stats.add_(torch.where(active, torch.stack([
+            drawn, drawn,
+            okc.sum() - resc.sum() - predc.sum() - accc.sum(), resc.sum(),
+            predc.sum(), dropped]), zero))
+        ps = cb.pstats
+        cb.pstats.copy_(torch.where(active, torch.stack([
+            ps[:, 0] + (budget if adaptive else self._pbatch),
+            ps[:, 1] + accc, ps[:, 2] + resc, ps[:, 3] + dt,
+            torch.maximum(ps[:, 4], count)], dim=1), ps))
+        if adaptive:
+            # one EMA step from this round's counts per budgeted slot
+            counts4 = torch.stack([accc, okc, resc, predc],
+                                  dim=1).to(torch.int32)
+            st.ema.copy_(torch.where(active, planner.ema_update(
+                st.ema, budget, counts4, self._ema_shifts, planner.TORCH_XP),
+                st.ema))
+        st.owed.copy_(torch.where(active, shortfall, st.owed))
+        st.dead.logical_or_(newly)
+        st.streak.copy_(torch.where(active, streak, st.streak))
+        st.head.copy_(head)
+        st.count.copy_(count)
+        cb.total.copy_(total)
+        cb.fail.logical_or_(bad & active)
+        cb.rounds.add_(active.to(torch.int64))
+
+    # -- the loop --------------------------------------------------------------
     def _init_state(self) -> _LoopState:
         nj, cap, dev = len(self.order), self.surplus_cap, self.device
         z = lambda: torch.zeros(nj, dtype=torch.int64, device=dev)  # noqa: E731
@@ -1046,6 +1258,14 @@ class TorchUnionSampler:
             ema=(torch.as_tensor(self._ema_seed, device=dev)
                  if self.plan == "adaptive" else None))
 
+    def _call_buffers(self, C: int) -> _CallBuffers:
+        """The static buffers of capacity class ``C``."""
+        cb = self._buffers.get(C)
+        if cb is None:
+            cb = self._buffers[C] = _CallBuffers(
+                C, len(self.order), len(self.attrs) + 1, self.device)
+        return cb
+
     def sample_async(self, n: int):
         """Run the round loop for ``sample(n)``; the returned handle's
         ``result()`` does the one device→host fetch (the serve tier
@@ -1053,83 +1273,137 @@ class TorchUnionSampler:
         from ..union_sampler import empty_sample_set
         if n <= 0:
             return _ReadySample(empty_sample_set(list(self.attrs), self.stats))
-        with self._on_device():
-            return self._run_loop(int(n))
+        t0 = time.perf_counter() if obs.enabled() else 0.0
+        with self._on_device(), _dispatch_annotation():
+            pending = self._run_loop(int(n))
+        if obs.enabled():
+            self._obs_handles()["dispatch"].observe(time.perf_counter() - t0)
+        return pending
 
     def _run_loop(self, n: int) -> _PendingSample:
-        dev = self.device
-        nj, cap = len(self.order), self.surplus_cap
-        W = min(self._drain_w, cap)
-        bt = int(sum(self.piece_batches))
-        adaptive = self.plan == "adaptive"
         if self._state is None:
             self._state = self._init_state()
-        st = self._state
-        out = torch.zeros((n + 1, len(self.attrs) + 1), dtype=torch.int32,
-                          device=dev)               # row n is the trash row
-        total = torch.zeros((), dtype=torch.int64, device=dev)
-        fail = torch.zeros((), dtype=torch.bool, device=dev)
-        stats = torch.zeros(len(_STAT_FIELDS), dtype=torch.int64, device=dev)
-        pstats = torch.zeros((nj, len(PIECE_STAT_FIELDS)), dtype=torch.int64,
-                             device=dev)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        rounds = 0
+        cb = self._call_buffers(1 << max(10, (n - 1).bit_length()))
+        device_loop = self.fused_rounds == "device"
+        if device_loop and self.device.type == "cuda" and cb.graph is None:
+            self._capture(cb)
+        cb.ctr.zero_()
+        cb.n.fill_(n)
         self.last_host_syncs = 0
-        while True:
-            probs_cum, bad = _cover_cum(self._probs_base, st.dead)
-            extra = torch.clamp(n - total - st.owed.sum(), 0, self._slot_width)
-            cols, okc, resc, accc, predc, need, budget = self._round_core(
-                probs_cum, st.owed, extra, st.ema, st.count)
-            # bank take (FIFO, capped) → fresh take → carried shortfall
-            dt = torch.minimum(torch.minimum(need, st.count),
-                               torch.full_like(need, self._drain_w))
-            ft = torch.minimum(need - dt, accc)
-            total, head, count = _emit_and_bank(
-                out, total, st.bank, st.head, st.count, cols, dt, ft, accc,
-                cap, n, W)
-            shortfall = need - dt - ft
-            # dead-piece bookkeeping: stray picks on dead pieces are dropped;
-            # a live piece that keeps a target but yields nothing for
-            # dead_rounds rounds is empty in reality — drop it
-            dropped = torch.where(st.dead, shortfall, zero).sum()
-            shortfall = torch.where(st.dead, zero, shortfall)
-            trig = (shortfall > 0) & (accc == 0) & (count == 0)
-            streak = torch.where(st.dead, st.streak,
-                                 torch.where(trig, st.streak + 1, zero))
-            newly = ~st.dead & (streak >= self.dead_rounds)
-            dropped = dropped + torch.where(newly, shortfall, zero).sum()
-            shortfall = torch.where(newly, zero, shortfall)
-            # adaptive rounds draw only the budgeted slots; static rounds
-            # spend the full width every round
-            drawn = budget.sum() if adaptive else zero + bt
-            stats += torch.stack([
-                drawn, drawn,
-                okc.sum() - resc.sum() - predc.sum() - accc.sum(), resc.sum(),
-                predc.sum(), dropped])
-            pstats = torch.stack([
-                pstats[:, 0] + (budget if adaptive else self._pbatch),
-                pstats[:, 1] + accc, pstats[:, 2] + resc, pstats[:, 3] + dt,
-                torch.maximum(pstats[:, 4], count)], dim=1)
-            if adaptive:
-                # one EMA step from this round's counts per budgeted slot
-                counts4 = torch.stack([accc, okc, resc, predc],
-                                      dim=1).to(torch.int32)
-                st.ema = planner.ema_update(st.ema, budget, counts4,
-                                            self._ema_shifts, planner.TORCH_XP)
-            st.owed, st.dead, st.streak = shortfall, st.dead | newly, streak
-            st.head, st.count = head, count
-            fail = fail | bad
-            rounds += 1
-            # the one host sync of the round: loop test (total < n, ~fail)
-            got, failed = torch.stack([total, fail.to(torch.int64)]).tolist()
-            self.last_host_syncs += 1
-            self.host_syncs += 1
-            if failed or got >= n or rounds >= self.max_rounds:
-                break
-        self.total_rounds += rounds
+        self.last_chunks = 0
+        self.last_wasted_rounds = 0
+        loop = self._loop_device if device_loop else self._loop_host
+        total, rounds, fail = loop(cb, n)
+        cb.last_rounds = rounds
+        self.wasted_rounds += self.last_wasted_rounds
+        # the call's rows, shuffled, and its counters (the adaptive EMAs
+        # too) leave the static buffers in one tensor: the one fetch
         shuffle = self.uniforms.permutation(n)
-        return _PendingSample(self, n, out, got, rounds, bool(failed), stats,
-                              pstats, shuffle)
+        parts = [cb.out[:n][shuffle].reshape(-1).to(torch.int64),
+                 cb.ctr[_CTR_STATS:]]
+        if self.plan == "adaptive":
+            parts.append(self._state.ema.reshape(-1).to(torch.int64))
+        return _PendingSample(self, n, torch.cat(parts), total, rounds,
+                              bool(fail))
+
+    def _sync(self, cb: _CallBuffers) -> Tuple[int, int, int]:
+        """The loop's one host sync: ``(total, rounds, fail)``."""
+        total, rounds, fail = cb.ctr[_CTR_TOTAL:_CTR_STATS].tolist()
+        self.last_chunks += 1
+        self.last_host_syncs += 1
+        self.host_syncs += 1
+        return total, rounds, fail
+
+    def _done(self, n: int, total: int, rounds: int, fail: int) -> bool:
+        return bool(fail) or total >= n or rounds >= self.max_rounds
+
+    def _loop_host(self, cb: _CallBuffers, n: int):
+        """``fused_rounds="host"``: one round, then one sync, until done."""
+        while True:
+            self._round_step(cb)
+            total, rounds, fail = self._sync(cb)
+            if self._done(n, total, rounds, fail):
+                return total, rounds, fail
+
+    def _loop_device(self, cb: _CallBuffers, n: int):
+        """``fused_rounds="device"``: chunks of ``K`` rounds (graph replays
+        on the card), one sync per chunk; the uniforms that the gated
+        rounds of the last chunk drew are rewound."""
+        K = self.chunk_rounds or max(cb.last_rounds, 1)
+        done = 0
+        while True:
+            K = max(1, min(K, self.max_rounds - done))
+            mark = self.uniforms.mark()
+            self._replay(cb, K)
+            total, rounds, fail = self._sync(cb)
+            ran = rounds - done
+            if ran < K:         # gated rounds only once the call is done
+                self.uniforms.rewind(mark, ran, self._slot_width,
+                                     self._round_shapes())
+                self.last_wasted_rounds += K - ran
+            done = rounds
+            if self._done(n, total, rounds, fail):
+                return total, rounds, fail
+            # the rows still owed at this call's yield per round (at most
+            # as many rounds as have run: a slow start doubles)
+            K = self.chunk_rounds or min(
+                max(1, -(-rounds * (n - total) // max(total, 1))), rounds)
+
+    def _replay(self, cb: _CallBuffers, K: int) -> None:
+        """``K`` rounds: graph replays on the card (each adds the kernel
+        launches captured in one round to the shared counts), the step
+        itself on the CPU."""
+        if cb.graph is None:
+            for _ in range(K):
+                self._round_step(cb)
+            return
+        for _ in range(K):
+            cb.graph.replay()
+        for k, v in cb.replay_launches.items():
+            build.launch_counts[k] += v * K
+
+    def _capture(self, cb: _CallBuffers) -> None:
+        """Capture one round of class ``cb.C`` as a CUDA graph.
+
+        First a few gated rounds (``n = 0``) on a side stream, as PyTorch's
+        CUDA-graph notes require: they build what the round builds on first
+        use (membership indexes, predicate sets, the kernel library) and
+        change no carry.  The sampler's Philox generator is registered with
+        the graph, every graph of the sampler shares one memory pool, and the
+        stream is rewound to where it stood.  A capture that fails raises:
+        there is no fallback to the host loop."""
+        gen = getattr(self.uniforms, "generator", None)
+        if gen is None:
+            raise ValueError(
+                "fused_rounds='device' on the card captures the round into a "
+                "CUDA graph, which draws from the Philox uniform source; run "
+                "another uniform source with fused_rounds='host'")
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            mark = self.uniforms.mark()
+            cb.ctr.zero_()              # n = 0: every warm-up round is gated
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(_CAPTURE_WARMUP_ROUNDS):
+                    self._round_step(cb)
+            cur.wait_stream(side)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            g = torch.cuda.CUDAGraph()
+            g.register_generator_state(gen)
+            # a capture launches nothing: its kernels run at each replay
+            with build.recording() as recorded, torch.cuda.graph(
+                    g, pool=self._graph_pool,
+                    capture_error_mode="thread_local"):
+                self._round_step(cb)
+            cb.replay_launches = recorded
+            self.uniforms.rewind(mark, 0, self._slot_width,
+                                 self._round_shapes())
+        cb.graph = g
+        cb.capture_s = time.perf_counter() - t0
+        self.capture_seconds[cb.C] = cb.capture_s
 
     def sample(self, n: int):
         t0 = time.perf_counter()
@@ -1142,11 +1416,79 @@ class TorchUnionSampler:
                 time.perf_counter() - t0, n)
         return ss
 
-    def _fold_piece_stats(self, p: np.ndarray, samples: int = 0) -> None:
+    # -- telemetry (repro_torch.obs) -------------------------------------------
+    def _obs_handles(self):
+        """Lazily bound metric children (one registry lookup per engine),
+        under the reference's names."""
+        if self._obs_metrics is None:
+            reg = obs.get_registry()
+            per_piece = [
+                reg.counter("repro_engine_piece_draws_total",
+                            "candidate draws per cover piece", ("join",)),
+                reg.counter("repro_engine_piece_accepts_total",
+                            "cover-accepted candidates per piece", ("join",)),
+                reg.counter("repro_engine_piece_residual_rejects_total",
+                            "§8.2 residual rejections per piece", ("join",)),
+                reg.counter("repro_engine_piece_bank_drained_total",
+                            "rows served from the surplus bank", ("join",)),
+            ]
+            self._obs_metrics = {
+                "piece": [[c.labels(join=n) for c in per_piece]
+                          for n in self.order],
+                "hwm": reg.gauge("repro_engine_piece_bank_hwm",
+                                 "surplus-bank occupancy high-water mark",
+                                 ("join",)),
+                "waste": reg.gauge(
+                    "repro_round_waste_ratio",
+                    "1 - accepted/drawn per cover piece (cumulative)",
+                    ("join",)),
+                "ema": reg.gauge(
+                    "repro_engine_piece_ema",
+                    "adaptive-planner acceptance EMA (fraction of budget)",
+                    ("join", "component")),
+                "rounds": reg.counter("repro_engine_rounds_total",
+                                      "fused Algorithm-1 rounds run"),
+                "samples": reg.counter("repro_engine_samples_total",
+                                       "samples emitted by the fused loop"),
+                "dispatch": reg.histogram(
+                    "repro_engine_dispatch_seconds",
+                    "host wall-clock of sample(n) loop dispatch"),
+                "drain": reg.histogram(
+                    "repro_engine_drain_seconds",
+                    "host wall-clock of result fetch + assembly"),
+            }
+        return self._obs_metrics
+
+    def _fold_piece_stats(self, p: np.ndarray, rounds: int = 0,
+                          samples: int = 0,
+                          ema: Optional[np.ndarray] = None) -> None:
+        """Fold one call's per-piece counter matrix into the cumulative
+        engine state (+ registry publication unless REPRO_OBS=off)."""
         p = np.asarray(p, np.int64)
         self.piece_stats[:, :4] += p[:, :4]
         self.piece_stats[:, 4] = np.maximum(self.piece_stats[:, 4], p[:, 4])
         self.stats.samples_emitted += int(samples)
+        if not obs.enabled():
+            return
+        h = self._obs_handles()
+        for j, name in enumerate(self.order):
+            for i, child in enumerate(h["piece"][j]):
+                v = int(p[j, i])
+                if v:
+                    child.inc(v)
+            h["hwm"].labels(join=name).set(int(self.piece_stats[j, 4]))
+            draws = int(self.piece_stats[j, 0])
+            if draws:
+                h["waste"].labels(join=name).set(
+                    1.0 - int(self.piece_stats[j, 1]) / draws)
+            if ema is not None:
+                for i, comp in enumerate(planner.EMA_COMPONENTS):
+                    h["ema"].labels(join=name, component=comp).set(
+                        float(ema[j, i]) / planner.EMA_ONE)
+        if rounds:
+            h["rounds"].inc(int(rounds))
+        if samples:
+            h["samples"].inc(int(samples))
 
 
 # ---------------------------------------------------------------------------
@@ -1163,8 +1505,8 @@ class TorchRecordUnionSampler(TorchUnionSampler):
     int64 tensors holding uint32 values; empty slots hold the all-ones
     sentinel pair and sort last), the tuple's current **home** piece, and
     the count of output rows currently credited to the entry.  A round is
-    driven from the host (one sync per round: the lazy record semantics
-    need the round's counts back) and processes the cover pieces in
+    driven from the host in either ``fused_rounds`` mode (one sync per
+    round: the lazy record semantics need the round's counts back) and processes the cover pieces in
     ascending order against the live record:
 
     * draw ``piece_batches[j]`` candidates (tree walk + §8.2 residual + the
@@ -1194,17 +1536,24 @@ class TorchRecordUnionSampler(TorchUnionSampler):
     _SENTINEL = 0xFFFFFFFF
 
     def __init__(self, backend: TorchBackend, cover, seed: int = 0,
-                 round_batch: int = 4096, stats=None, uniforms=None,
-                 predicate=None, plan: str = "static",
-                 surplus_cap: Optional[int] = None,
+                 round_batch: int = 4096, dead_rounds: int = 8,
+                 max_rounds: int = 4096, surplus_cap: Optional[int] = None,
+                 stats=None, fused_rounds: str = "device",
+                 balance: str = "cover", balance_slack: float = 1.5,
+                 uniforms=None, predicate=None, plan: str = "static",
                  record_capacity: Optional[int] = None):
         # budget masking would interleave with the lazy-record semantics
         if plan != "static":
             raise ValueError(
                 "membership='record' supports plan='static' only")
+        # the rounds are host-driven in either mode, as in the reference's
+        # record engine: the lazy record needs each round's counts back
         super().__init__(backend, cover, seed=seed, round_batch=round_batch,
-                         stats=stats, uniforms=uniforms, predicate=predicate,
-                         surplus_cap=surplus_cap)
+                         dead_rounds=dead_rounds, max_rounds=max_rounds,
+                         surplus_cap=surplus_cap, stats=stats,
+                         fused_rounds=fused_rounds, balance=balance,
+                         balance_slack=balance_slack, uniforms=uniforms,
+                         predicate=predicate)
         self.host_rng = np.random.default_rng(seed)
         self._sorted_attrs = tuple(sorted(self.attrs))
         self.record_capacity = record_capacity
@@ -1401,7 +1750,7 @@ class TorchRecordUnionSampler(TorchUnionSampler):
             carry = shortfall
         self.last_rounds = rounds
         self.total_rounds += rounds
-        self._fold_piece_stats(pstats, samples=n)
+        self._fold_piece_stats(pstats, rounds=rounds, samples=n)
         # settle emission: keep rows whose emit-time home is still the final
         # record home (revised copies are exactly the ones whose home moved)
         mat = torch.cat([torch.cat([m, torch.full((m.shape[0], 1), j,

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import mesh_device
+from .. import obs
 from ..obs import TraceRing
 from .cover import Cover, build_cover
 from .estimators import EstimatorBackend, get_estimator
@@ -143,6 +144,7 @@ class OnlineUnionSampler:
         # φ-trajectory tracer: the recent refinement history, bounded
         self.trace = TraceRing(capacity=TRACE_CAPACITY)
         self.refresh_count = 0          # φ-batch refreshes performed so far
+        self._obs_m = None
         self.last_refresh_at = -1       # stats.iterations at the last refresh
         self._hist_sizes = {n: float(self.cover.join_sizes[n])
                             for n in self.names}
@@ -265,7 +267,7 @@ class OnlineUnionSampler:
                         > TARGET_REL_HALFWIDTH * st.mean):
                     hw_ok = False
             self._confident = hw_ok
-        # ---- trace ----
+        # ---- trace + metrics ----
         removed = self.stats.backtrack_removed - removed_before
         self.refresh_count += 1
         self.last_refresh_at = self.stats.iterations
@@ -280,6 +282,12 @@ class OnlineUnionSampler:
             hist_gap=self.histogram_gaps(),
             kept=len(self._accepted), removed=int(removed),
             confident=bool(self._confident))
+        if obs.enabled():
+            m = self._obs_handles()
+            m["refreshes"].inc()
+            if removed:
+                m["backtracked"].inc(removed)
+            m["union"].set(float(self.cover.union_size))
 
     def histogram_gaps(self) -> Dict[str, float]:
         """Relative gap between the histogram init bound and the current
@@ -295,6 +303,23 @@ class OnlineUnionSampler:
     def backtrack_count(self) -> int:
         """Total accepted samples removed by backtracking (all refreshes)."""
         return self.stats.backtrack_removed
+
+    def _obs_handles(self):
+        """The refinement series, under the reference's names."""
+        if self._obs_m is None:
+            reg = obs.get_registry()
+            self._obs_m = {
+                "refreshes": reg.counter(
+                    "repro_online_refreshes_total",
+                    "phi-batch parameter refreshes performed"),
+                "backtracked": reg.counter(
+                    "repro_online_backtrack_removed_total",
+                    "accepted samples removed by backtracking"),
+                "union": reg.gauge(
+                    "repro_online_union_size",
+                    "current union-size estimate after refinement"),
+            }
+        return self._obs_m
 
     # ---------------------------------------------------------------- accept
     def _cover_accept(self, oidx: int, rows: Rows) -> np.ndarray:

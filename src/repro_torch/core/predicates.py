@@ -217,8 +217,15 @@ def compile_preds_torch(preds: Sequence[Pred],
         for attr, op, val in bound:
             c = rows[attr]
             if op == "in":
-                m = (torch.zeros(c.shape, dtype=torch.bool, device=c.device)
-                     if val.size == 0 else torch.isin(c, _set(val, c.device)))
+                # a lookup in the sorted set: no data-dependent sizes (the
+                # sorting path of torch.isin runs torch.unique, which syncs
+                # with the host and cannot be captured in a CUDA graph)
+                if val.size == 0:
+                    m = torch.zeros(c.shape, dtype=torch.bool, device=c.device)
+                else:
+                    vs = _set(val, c.device)
+                    pos = torch.searchsorted(vs, c)
+                    m = vs[torch.clamp(pos, max=val.size - 1)] == c
             elif op == "==":
                 m = c == val
             elif op == "!=":

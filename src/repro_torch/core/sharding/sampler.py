@@ -2,8 +2,9 @@
 
 Port of ``repro.core.sharding.sampler`` (its ``fused_rounds="host"`` twin).
 :class:`ShardedUnionSampler` runs the unsharded engine's host-driven loop
-(:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler`) over
-a round that spans every rank of the mesh.  One round, on each rank:
+(:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler` with
+``fused_rounds="host"``: one sync per round) over a round that spans every
+rank of the mesh; ``fused_rounds="device"`` raises.  One round, on each rank:
 
 1. **replicated cover selection** — every rank takes the same per-slot
    picks from a stream seeded the same on every rank and histograms them
@@ -84,21 +85,31 @@ class ShardedUnionSampler(TorchUnionSampler):
     stream (tests replay the reference's keys through it at world 1)."""
 
     def __init__(self, scat: ShardedCatalog, cover, seed: int = 0,
-                 round_batch: int = 4096, surplus_cap: Optional[int] = None,
-                 stats=None, uniforms=None, predicate=None,
-                 plan: str = "static"):
+                 round_batch: int = 4096, dead_rounds: int = 8,
+                 max_rounds: int = 4096, surplus_cap: Optional[int] = None,
+                 stats=None, fused_rounds: str = "host",
+                 balance: str = "cover", balance_slack: float = 1.5,
+                 uniforms=None, predicate=None, plan: str = "static"):
+        if fused_rounds == "device":
+            raise ValueError(
+                "fused_rounds='device' with mesh=: the reference's per-shard "
+                "device loop (collectives inside the round program) is not "
+                "ported yet; the sharded engine runs fused_rounds='host'")
         self.scat = scat
         self.mesh = scat.mesh
         self.world, self.rank = scat.world, scat.mesh.rank
         self.shard_batch = int(round_batch)
         super().__init__(scat.backend, cover, seed=seed,
                          round_batch=self.shard_batch * self.world,
-                         stats=stats, uniforms=uniforms, predicate=predicate,
-                         plan=plan, surplus_cap=surplus_cap)
+                         dead_rounds=dead_rounds, max_rounds=max_rounds,
+                         surplus_cap=surplus_cap, stats=stats,
+                         fused_rounds=fused_rounds, balance=balance,
+                         balance_slack=balance_slack, uniforms=uniforms,
+                         predicate=predicate, plan=plan)
         # per-rank cover-balanced widths (demand-matched at rank granularity
         # under the adaptive plan); at world 1 they are the unsharded ones
         base = np.maximum(np.asarray(cover.selection_probs(), np.float64), 0)
-        bs = _piece_batches(base, self.shard_batch)
+        bs = _piece_batches(base, self.shard_batch, balance, balance_slack)
         if plan == "adaptive":
             bs = planner.alloc_batches(bs, base, self._ema_seed[:, 0],
                                        planner.adaptive_slot(self.shard_batch))

@@ -276,13 +276,24 @@ class SetUnionSampler:
     stream (tests replay the reference's uniforms through it).  ``mesh=``
     runs the sharded engine on the mesh's rank and device (``round_batch``
     is then per rank); ``device`` must then be left out or name the mesh's
-    device type."""
+    device type.
+
+    ``fused_rounds`` picks the round loop: ``"device"`` (the default
+    without ``mesh=``) captures one round as a CUDA graph per capacity class
+    and replays it with one host sync per chunk of rounds; ``"host"`` (the
+    default with ``mesh=``, and its only mode: ``"device"`` there raises)
+    syncs after every round.  Record mode is host-driven in either mode.
+    ``dead_rounds``, ``max_rounds``, ``balance`` and ``balance_slack`` are
+    the reference engine's, with its defaults."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], cover: Cover,
                  seed: int = 0, backend="torch", device=None,
                  round_batch: Optional[int] = 4096, uniforms=None,
                  membership: str = "probe", predicate=None,
-                 plan: str = "static", mesh=None):
+                 plan: str = "static", mesh=None,
+                 fused_rounds: Optional[str] = None, dead_rounds: int = 8,
+                 max_rounds: int = 4096, balance: str = "cover",
+                 balance_slack: float = 1.5):
         from .backends.torch_backend import (TorchRecordUnionSampler,
                                              TorchUnionSampler)
         if membership not in ("probe", "record"):
@@ -332,21 +343,22 @@ class SetUnionSampler:
         self.backend = get_backend(backend, cat, self.joins, device)
         self.device = self.backend.device
         self.stats = SamplerStats()
+        kw = dict(seed=seed, round_batch=round_batch, stats=self.stats,
+                  uniforms=uniforms, predicate=predicate, plan=plan,
+                  surplus_cap=surplus_cap, dead_rounds=dead_rounds,
+                  max_rounds=max_rounds, balance=balance,
+                  balance_slack=balance_slack)
+        if fused_rounds is not None:
+            kw["fused_rounds"] = fused_rounds
         if mesh is not None:
             from .sharding import ShardedCatalog, ShardedUnionSampler
             scat = ShardedCatalog(cat, self.joins, mesh=mesh,
                                   backend=self.backend)
-            self.engine = ShardedUnionSampler(
-                scat, cover, seed=seed, round_batch=round_batch,
-                stats=self.stats, uniforms=uniforms, predicate=predicate,
-                plan=plan, surplus_cap=surplus_cap)
+            self.engine = ShardedUnionSampler(scat, cover, **kw)
             return
         engine = (TorchRecordUnionSampler if membership == "record"
                   else TorchUnionSampler)
-        self.engine = engine(
-            self.backend, cover, seed=seed, round_batch=round_batch,
-            stats=self.stats, uniforms=uniforms, predicate=predicate,
-            plan=plan, surplus_cap=surplus_cap)
+        self.engine = engine(self.backend, cover, **kw)
 
     @property
     def prober(self):

@@ -9,11 +9,15 @@ seconds.  Nothing here runs when the module is imported.
 
 :func:`launch` is the one place a wrapper launches a kernel: it calls the C
 launcher, raises if it reports a CUDA error, and adds the number of kernels
-the launcher reports it launched to :data:`launch_counts`.
+the launcher reports it launched to :data:`launch_counts`.  Inside
+:func:`recording` (a CUDA-graph capture) the kernels are only recorded, so
+they go to the capture's own counts; the code that replays the graph adds
+them to :data:`launch_counts` once per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,6 +26,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict
 
@@ -69,6 +74,24 @@ launch_counts: Dict[str, int] = {"sorted_probe": 0, "probe_pick": 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# per thread: the counts of a CUDA-graph capture in progress (a kernel
+# recorded into a graph launches only when the graph replays, and the code
+# that replays it adds it to launch_counts then)
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, this thread's wrapper calls add the kernels they
+    record to the yielded dict instead of ``launch_counts``."""
+    counts = {k: 0 for k in launch_counts}
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = None
 
 
 def _nvcc() -> str:
@@ -154,8 +177,10 @@ def stream(dev) -> int:
 
 def launch(kernel: str, symbol: str, *args) -> None:
     """Call the C launcher ``symbol``; raise on a CUDA error, else add the
-    kernels it launched to ``launch_counts[kernel]``."""
+    kernels it launched to ``launch_counts[kernel]`` (to the capture's
+    counts inside :func:`recording`)."""
     rc = getattr(load(), symbol)(*args)
     if rc < 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {-rc}")
-    launch_counts[kernel] += rc
+    counts = getattr(_recording, "counts", None)
+    (launch_counts if counts is None else counts)[kernel] += rc

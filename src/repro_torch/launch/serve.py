@@ -24,9 +24,23 @@ the N processes (one card each), whose group this CLI initialises
 
 Every rank serves the same samples; rank 0 prints.
 
-It prints the served rate, ψ (candidate draws per emitted sample), rounds
-and host syncs.  The LM decode mode and the ``/metrics`` endpoint of the
-reference CLI are not ported yet.
+It prints the served rate, ψ (candidate draws per emitted sample), rounds,
+host syncs, the engine's round loop (``fused_rounds="device"`` unsharded:
+one CUDA graph per capacity class, one host sync per chunk of rounds;
+``"host"`` with ``--shards``: one sync per round) and the request latency's
+p50/p99.  ``--metrics-port P`` starts a background HTTP thread with
+``/metrics`` (Prometheus text: the engine's per-piece counters, rounds and
+samples, the request-latency histogram with p50/p99, queue depth,
+per-replica engine stats) and ``/healthz`` (``P=0`` binds an ephemeral
+port, printed at startup); ``--linger S`` keeps the service and the
+endpoint up S seconds after the requests so external scrapers can
+collect::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
+        --device cpu --scale 0.05 --requests 2 --samples 256 \
+        --metrics-port 0 --linger 5
+
+The LM decode mode of the reference CLI is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,7 +79,7 @@ def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
 
 
 def serve(sampler, requests: int, samples: int, batch: int,
-          prefetch: int = 2) -> Dict[str, object]:
+          prefetch: int = 2, linger: float = 0.0) -> Dict[str, object]:
     """One warm-up request through a service of its own, then ``requests``
     timed requests of ``samples`` through a fresh :class:`SampleService`;
     returns the summary numbers (with the per-piece home counts of the timed
@@ -79,7 +93,8 @@ def serve(sampler, requests: int, samples: int, batch: int,
     On a mesh of more than one rank the requests go straight to
     ``sampler.sample``: a prefetching producer thread stops after a number
     of rounds that depends on its rank's timing, and every rank must issue
-    the same collectives."""
+    the same collectives.  ``linger`` keeps the timed service up that many
+    seconds after the requests (for external scrapers of ``/metrics``)."""
     from ..serve import SampleService
 
     engine = sampler.engine
@@ -101,6 +116,9 @@ def serve(sampler, requests: int, samples: int, batch: int,
             served += len(ss)
             homes += np.bincount(ss.home, minlength=homes.shape[0])
         dt = time.perf_counter() - t0
+        if linger > 0:
+            print(f"lingering {linger:.0f}s for scrapes...", flush=True)
+            time.sleep(linger)
     st = sampler.stats
     return {
         "requests": requests, "samples": served, "seconds": dt,
@@ -113,6 +131,7 @@ def serve(sampler, requests: int, samples: int, batch: int,
         "home_counts": homes.tolist(),
         "host_syncs": engine.host_syncs,
         "rounds_total": engine.total_rounds,
+        "fused_rounds": engine.fused_rounds,
     }
 
 
@@ -138,6 +157,12 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics + /healthz on this port "
+                         "(0 = ephemeral, URL printed at startup)")
+    ap.add_argument("--linger", type=float, default=0.0,
+                    help="keep the service + /metrics up this many seconds "
+                         "after the request loop (for external scrapers)")
     args = ap.parse_args(argv)
     rank = 0
     if args.shards > 1:
@@ -147,8 +172,18 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
                                            args.round_batch, args.plan,
                                            args.shards)
     sampler.sample(256)                     # warm-up call
-    out = serve(sampler, args.requests, args.samples, args.round_batch,
-                args.prefetch)
+    from .. import obs
+    metrics = None
+    if args.metrics_port is not None and rank == 0:
+        metrics = obs.MetricsServer(port=args.metrics_port).start()
+        print(f"metrics: {metrics.url}/metrics  (health: "
+              f"{metrics.url}/healthz)", flush=True)
+    try:
+        out = serve(sampler, args.requests, args.samples, args.round_batch,
+                    args.prefetch, linger=args.linger)
+    finally:
+        if metrics is not None:
+            metrics.stop()
     out["build_s"] = build_s
     out["shards"] = args.shards
     if rank == 0:
@@ -161,8 +196,13 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
               f"rejects={out['cover_rejects']}, "
               f"pred_rejects={out['pred_rejects']}, "
               f"shards={args.shards}, rounds={out['rounds_total']}, "
-              f"host_syncs={out['host_syncs']}, build={build_s:.1f}s]",
+              f"host_syncs={out['host_syncs']}, "
+              f"fused_rounds={out['fused_rounds']}, build={build_s:.1f}s]",
               flush=True)
+        hist = obs.get_registry().get("repro_serve_request_seconds")
+        if obs.enabled() and hist is not None and hist.quantile(0.5) > 0:
+            print(f"request latency: p50={hist.quantile(0.5)*1e3:.2f}ms "
+                  f"p99={hist.quantile(0.99)*1e3:.2f}ms", flush=True)
     return out
 
 

@@ -18,21 +18,32 @@ source for serving traffic:
   host or per mesh) and their streams interleave into one queue; per-engine
   cost accounting combines with :meth:`SamplerStats.merge`.
 
-Port copy of ``repro.serve.service`` without its telemetry (the metrics
-registry and the ``/metrics`` endpoint that reads it are not ported yet);
-``python -m repro_torch.launch.serve --mode samples`` routes through this
-class.  The torch engine pins its own device and CUDA stream inside
-``sample_async``, so the producer thread launches on the sampler's stream.
+* **telemetry** — every ``request()`` lands in the
+  ``repro_serve_request_seconds`` latency histogram (p50/p99 gauges derived
+  at scrape time), with request/sample counters, a queue-depth /
+  prefetch-occupancy gauge, and per-replica ``SamplerStats`` gauges, under
+  the reference's names; ``python -m repro_torch.launch.serve --mode
+  samples --metrics-port P`` exposes all of it on
+  ``http://127.0.0.1:P/metrics`` next to a ``/healthz`` liveness probe.
+  ``REPRO_OBS=off`` disables it.
+
+Port copy of ``repro.serve.service``; ``python -m repro_torch.launch.serve
+--mode samples`` routes through this class.  The torch engine pins its own
+device and CUDA stream inside ``sample_async`` and finishes a call's round
+loop there (its device loop syncs once per chunk of rounds), so the
+producer's dispatch-then-drain keeps the host loop's carry order.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import List, Optional
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import obs
 from ..core.union_sampler import SampleSet, SamplerStats
 
 
@@ -57,6 +68,8 @@ class SampleService:
         self._cursor_pos = 0
         self._lock = threading.Lock()               # request serialisation
         self.served = 0
+        self._obs_m: Optional[Dict] = None
+        self._collector = None
 
     # ------------------------------------------------------------- lifecycle
     def start(self) -> "SampleService":
@@ -69,6 +82,8 @@ class SampleService:
         if self._stop.is_set():
             raise RuntimeError("SampleService is single-use: build a new "
                                "service instead of restarting a stopped one")
+        if obs.enabled():
+            self._obs_handles()
         for i, s in enumerate(self.samplers):
             t = threading.Thread(target=self._produce, args=(s,),
                                  name=f"sample-producer-{i}", daemon=True)
@@ -87,6 +102,11 @@ class SampleService:
         for t in self._threads:
             t.join(timeout=5)
         self._threads = []
+        if self._collector is not None:     # single-use: stop scraping us
+            reg, fn = self._collector
+            fn()        # final quantile/engine refresh (producers quiesced)
+            reg.remove_collector(fn)
+            self._collector = None
 
     def __enter__(self) -> "SampleService":
         return self.start()
@@ -142,11 +162,63 @@ class SampleService:
                         "SampleService.request timed out (engine too slow "
                         "for the requested size, or service not started)")
 
+    # ------------------------------------------------------------- telemetry
+    def _obs_handles(self) -> Dict:
+        """Serve-tier metric handles (get-or-create in the registry); the
+        queue-depth gauge and p50/p99 + per-replica stat gauges refresh at
+        scrape time via a registry collector (removed again on stop)."""
+        if self._obs_m is None:
+            reg = obs.get_registry()
+            m = {
+                "latency": reg.histogram(
+                    "repro_serve_request_seconds",
+                    "end-to-end SampleService.request latency"),
+                "requests": reg.counter(
+                    "repro_serve_requests_total",
+                    "sample requests served"),
+                "samples": reg.counter(
+                    "repro_serve_samples_total",
+                    "union samples handed out by the serve tier"),
+                "queue": reg.gauge(
+                    "repro_serve_queue_depth",
+                    "prefetch queue occupancy (batches ready to serve)"),
+                "capacity": reg.gauge(
+                    "repro_serve_prefetch_capacity",
+                    "prefetch queue capacity (batches)"),
+                "p50": reg.gauge(
+                    "repro_serve_request_seconds_p50",
+                    "median request latency (bucket-interpolated)"),
+                "p99": reg.gauge(
+                    "repro_serve_request_seconds_p99",
+                    "p99 request latency (bucket-interpolated)"),
+                "engine": reg.gauge(
+                    "repro_serve_engine_stat",
+                    "per-replica engine SamplerStats fields",
+                    labelnames=("replica", "field")),
+            }
+            m["queue"].set_function(self._queue.qsize)
+            m["capacity"].set(self._queue.maxsize)
+
+            def collect():
+                m["p50"].set(m["latency"].quantile(0.5))
+                m["p99"].set(m["latency"].quantile(0.99))
+                for i, s in enumerate(self.samplers):
+                    for field, v in s.stats.as_dict().items():
+                        m["engine"].labels(str(i), field).set(v)
+                    # derived waste ratio: candidate draws per emitted sample
+                    m["engine"].labels(str(i), "psi").set(s.stats.psi())
+
+            reg.add_collector(collect)
+            self._collector = (reg, collect)
+            self._obs_m = m
+        return self._obs_m
+
     def request(self, n: int, timeout: float = 120.0) -> SampleSet:
         """Blocking request for ``n`` uniform union samples."""
         if not self._threads:
             raise RuntimeError("SampleService not started (use start() or a "
                                "with-block)")
+        t0 = time.perf_counter() if obs.enabled() else None
         if n <= 0:
             from ..core.union_sampler import empty_sample_set
             return empty_sample_set(self.attrs, self.stats())
@@ -172,6 +244,11 @@ class SampleService:
                 for a in self.attrs}
         home = np.concatenate([p.home for p in parts])
         fp = np.concatenate([p.fingerprint for p in parts])
+        if t0 is not None:
+            m = self._obs_handles()
+            m["latency"].observe(time.perf_counter() - t0)
+            m["requests"].inc()
+            m["samples"].inc(got)
         return SampleSet(self.attrs, rows, home, fp, self.stats())
 
     def stats(self) -> SamplerStats:

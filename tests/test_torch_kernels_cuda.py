@@ -11,7 +11,10 @@ has only the port::
 The UQ2 cases build the §8.3 predicate workload in both modes and hold
 every flavour's tree draws through the kernels equal to its draws through
 the plain versions on the same uniforms; the walk case holds every UQ1
-wander-join walk through ``probe_pick`` equal to the plain walk.
+wander-join walk through ``probe_pick`` equal to the plain walk.  The
+device-loop cases capture the union engine's round as a CUDA graph
+(``fused_rounds="device"``) and hold it bit-equal to the host loop, on UQ1
+under both plans and on UQ2 rejection mode.
 
 Without a card every test here skips.
 """
@@ -169,3 +172,83 @@ def test_uq1_walks_on_card_equal_plain():
         for a in walker.attrs:
             assert torch.equal(k_rows[a], p_rows[a]), (j.name, a)
         assert torch.equal(k_prob, p_prob) and torch.equal(k_ok, p_ok)
+
+
+def _device_host_pair(wl, cover, **kw):
+    from repro_torch.core.union_sampler import SetUnionSampler
+    return [SetUnionSampler(wl.cat, wl.joins, cover, seed=11, device="cuda",
+                            round_batch=1024, fused_rounds=mode, **kw)
+            for mode in ("device", "host")]
+
+
+def _assert_same_calls(dev, host, ns):
+    for n in ns:
+        a, b = dev.sample(n), host.sample(n)
+        for attr in a.attrs:
+            assert (a.rows[attr] == b.rows[attr]).all()
+        assert (a.home == b.home).all()
+        assert dev.stats.as_dict() == host.stats.as_dict()
+        assert (dev.engine.piece_stats == host.engine.piece_stats).all()
+        assert dev.engine.last_rounds == host.engine.last_rounds
+        assert dev.engine.last_host_syncs == dev.engine.last_chunks + 1
+    st_d, st_h = dev.engine._state, host.engine._state
+    for f in ("owed", "dead", "streak", "head", "count"):
+        assert torch.equal(getattr(st_d, f), getattr(st_h, f)), f
+    assert torch.equal(st_d.bank[:, :-1], st_h.bank[:, :-1])
+    assert (dev.engine.uniforms.generator.get_offset()
+            == host.engine.uniforms.generator.get_offset())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,chunk", [("static", None), ("static", 16),
+                                        ("adaptive", None)])
+def test_device_loop_capture_equals_host_loop_on_card(plan, chunk):
+    """The round captured as a CUDA graph per capacity class and replayed
+    in chunks equals the host loop bit for bit over calls that cross
+    classes, the rewound Philox offset included; the profiler sees each
+    probe's kernels recorded in one round once per round replayed."""
+    _need_card()
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=1.0, seed=0)
+    cover = estimate_union(warmup(wl.cat, wl.joins,
+                                  method="histogram").oracle).cover
+    dev, host = _device_host_pair(wl, cover, plan=plan)
+    dev.engine.chunk_rounds = chunk
+    _assert_same_calls(dev, host, (700, 1500, 333))
+    assert set(dev.engine._buffers) == {1024, 2048} \
+        == set(dev.engine.capture_seconds)
+    cb = dev.engine._buffers[2048]
+    assert cb.graph is not None
+    assert cb.replay_launches["sorted_probe"] > 0
+    assert cb.replay_launches["probe_pick"] > 0
+    # the kernels the card ran in a call of replays: the profiler's events
+    # are the launches recorded per round × the rounds replayed
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dev.sample(1500)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    eng = dev.engine
+    replays = eng.last_rounds + eng.last_wasted_rounds
+    for k in ("sorted_probe", "probe_pick"):
+        seen = sum(1 for name in names if f"{k}_kernel" in name)
+        assert seen == cb.replay_launches[k] * replays, k
+
+
+@pytest.mark.cuda
+def test_device_loop_capture_with_predicate_masks_on_card():
+    """UQ2 rejection mode: the in-round predicate masks (sorted-set
+    lookups for ``in``) are captured too."""
+    _need_card()
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.data.workloads import uq2
+    wl = uq2(scale=1.0, seed=0, pred_mode="rejection")
+    cover = estimate_union(warmup(wl.cat, wl.joins,
+                                  method="exact").oracle).cover
+    dev, host = _device_host_pair(wl, cover)
+    _assert_same_calls(dev, host, (2048, 999))
+    assert dev.stats.pred_rejects > 0

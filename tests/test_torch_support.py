@@ -3,10 +3,14 @@
 * :func:`to_port` — hands a reference workload to the port as plain numpy
   arrays through :func:`repro_torch.interop.workload_from_numpy`, §8.3
   predicates and pushdown provenance included.
+* :func:`union_setup` — the UQ1/UQ3/UQ4 workloads and covers of the
+  engine parity tests.
 * :class:`JaxReplay` — a uniform source for the port that replays the
   reference's JAX key schedule (``split(key)`` per round, then
   ``split(kround, nj+1)`` and per join ``split(k, n_streams)`` +
-  ``uniform``), so the port reproduces the reference position for position.
+  ``uniform``), so the port reproduces the reference position for position;
+  ``mark``/``rewind`` give the port's device loop back the keys of its
+  gated rounds.
 * :class:`JaxRecordReplay` — the same for the record engine, whose rounds
   split ``split(key)`` into ``nj`` join keys and draw no selection slot.
 * :func:`tree_uniforms` — the ``(n_streams, batch)`` uniforms
@@ -27,6 +31,8 @@ import jax
 import numpy as np
 import torch
 
+from repro.core.framework import estimate_union, warmup
+from repro.data.workloads import uq1, uq3, uq4
 from repro_torch.interop import workload_from_numpy
 
 
@@ -80,6 +86,15 @@ class JaxReplay:
 
     def permutation(self, n):
         return torch.from_numpy(self.rng.permutation(n))
+
+    # the device loop's rewind hook: a round consumes one split of the key
+    def mark(self):
+        return self.key
+
+    def rewind(self, mark, rounds, slot, shapes):
+        self.key = mark
+        for _ in range(rounds):
+            self.key, _ = jax.random.split(self.key)
 
 
 class JaxRecordReplay:
@@ -143,6 +158,29 @@ class JaxOnlineReplay(JaxWalkReplay, JaxSourcesReplay):
     def __init__(self, seed):
         JaxWalkReplay.__init__(self, seed + 1)
         JaxSourcesReplay.__init__(self, seed)
+
+
+def union_setup(name):
+    """A reference workload and its cover for the engine parity tests:
+    ``"uq1"`` (histogram cover: an empty join keeps a positive piece, so
+    dead pieces and dropped slots run), ``"uq3"`` or ``"uq4"`` (exact
+    covers)."""
+    if name == "uq1":
+        # histogram bounds give an empty join a positive piece: the dead-piece
+        # path (dropped slots) runs too
+        wl = uq1(scale=0.05, overlap=0.4, seed=0)
+        return wl, estimate_union(warmup(wl.cat, wl.joins,
+                                         method="histogram").oracle)
+    if name == "uq3":
+        # a branching tree (UQ3_JA) and two chains over shared customers
+        wl = uq3()
+        return wl, estimate_union(warmup(wl.cat, wl.joins,
+                                         method="exact").oracle)
+    wl = uq4(scale=0.05, seed=0)
+    # chain first: both cover pieces are non-empty and the cyclic piece is
+    # probed against the chain
+    return wl, estimate_union(warmup(wl.cat, wl.joins, method="exact").oracle,
+                              order=["UQ4_CHAIN", "UQ4_CYC"])
 
 
 def sample_multiset(ss):

@@ -1,8 +1,9 @@
 """The port's Algorithm-1 engine as a whole against the reference.
 
 * With uniforms replayed from the reference's key schedule,
-  ``TorchUnionSampler`` over several ``sample(n)`` calls (bank carry between
-  them) equals ``JaxUnionSampler(plan="static", fused_rounds="device")`` in
+  ``TorchUnionSampler`` in either loop mode (``fused_rounds="device"``, the
+  default, and ``"host"``) over several ``sample(n)`` calls (bank carry
+  between them) equals ``JaxUnionSampler(plan="static", fused_rounds="device")`` in
   the multiset of ``(row, home)`` (only the output shuffle differs), the six
   ``SamplerStats`` counters, the per-piece counters and the round counts.
 * The port's own Philox stream is uniform over the exact union (chi-square).
@@ -17,12 +18,13 @@ import numpy as np
 import pytest
 from scipy import stats as sps
 
-from test_torch_support import JaxReplay, sample_multiset, to_port
+from test_torch_support import (JaxReplay, sample_multiset, to_port,
+                                union_setup)
 
 from repro.core.framework import estimate_union, warmup
 from repro.core.overlap import exact_union_size
 from repro.core.union_sampler import SetUnionSampler as RefSetUnionSampler
-from repro.data.workloads import uq1, uq3, uq4
+from repro.data.workloads import uq1
 
 from repro_torch.core.union_sampler import SetUnionSampler
 
@@ -32,34 +34,16 @@ STAT_FIELDS = ("iterations", "candidate_draws", "cover_rejects",
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(name):
-    if name == "uq1":
-        # histogram bounds give an empty join a positive piece: the dead-piece
-        # path (dropped slots) runs too
-        wl = uq1(scale=0.05, overlap=0.4, seed=0)
-        return wl, estimate_union(warmup(wl.cat, wl.joins,
-                                         method="histogram").oracle)
-    if name == "uq3":
-        # a branching tree (UQ3_JA) and two chains over shared customers
-        wl = uq3()
-        return wl, estimate_union(warmup(wl.cat, wl.joins,
-                                         method="exact").oracle)
-    wl = uq4(scale=0.05, seed=0)
-    # chain first: both cover pieces are non-empty and the cyclic piece is
-    # probed against the chain
-    return wl, estimate_union(warmup(wl.cat, wl.joins, method="exact").oracle,
-                              order=["UQ4_CHAIN", "UQ4_CYC"])
-
-
-@pytest.mark.parametrize("name", ["uq1", "uq3", "uq4"])
-def test_union_equals_reference_under_replayed_uniforms(name):
-    wl, est = _setup(name)
+def _union_equals_reference(name, fused_rounds):
+    wl, est = union_setup(name)
     ref = RefSetUnionSampler(wl.cat, wl.joins, est.cover, seed=3,
                              backend="jax", round_batch=512,
                              fused_rounds="device", plan="static")
     cat, specs, cover = to_port(wl.joins, est.cover)
     port = SetUnionSampler(cat, specs, cover, seed=3, device="cpu",
-                           round_batch=512, uniforms=JaxReplay(3))
+                           round_batch=512, uniforms=JaxReplay(3),
+                           fused_rounds=fused_rounds)
+    assert port.engine.fused_rounds == fused_rounds
     assert port.engine.piece_batches == ref._engine.piece_batches
     for n in (1100, 2048, 1500):          # one capacity class on the JAX side
         a, b = ref.sample(n), port.sample(n)
@@ -69,7 +53,12 @@ def test_union_equals_reference_under_replayed_uniforms(name):
             assert getattr(a.stats, f) == getattr(b.stats, f), f
         assert np.array_equal(ref._engine.piece_stats, port.engine.piece_stats)
         assert ref._engine.last_rounds == port.engine.last_rounds
-        assert port.engine.last_host_syncs == port.engine.last_rounds + 1
+        # one sync per chunk of rounds plus the one fetch; the host loop's
+        # chunks are single rounds
+        eng = port.engine
+        assert eng.last_host_syncs == eng.last_chunks + 1
+        assert (eng.last_chunks == eng.last_rounds if fused_rounds == "host"
+                else eng.last_chunks <= eng.last_rounds)
         # fingerprints of the host SampleSet agree with its rows
         order = np.lexsort(b.matrix().T[::-1])
         ref_order = np.lexsort(a.matrix().T[::-1])
@@ -78,6 +67,18 @@ def test_union_equals_reference_under_replayed_uniforms(name):
         assert a.stats.dropped_slots > 0
     else:
         assert a.stats.cover_rejects > 0
+
+
+@pytest.mark.parametrize("name", ["uq1", "uq3", "uq4"])
+def test_union_equals_reference_under_replayed_uniforms(name):
+    """The default device loop (chunks of rounds between syncs)."""
+    _union_equals_reference(name, "device")
+
+
+@pytest.mark.parametrize("name", ["uq1", "uq3", "uq4"])
+def test_union_host_loop_equals_reference_under_replayed_uniforms(name):
+    """``fused_rounds="host"``: one sync per round."""
+    _union_equals_reference(name, "host")
 
 
 def test_philox_stream_uniform_over_exact_union():
