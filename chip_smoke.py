@@ -99,16 +99,28 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    ``hash-partition`` rank 0 of 2 (every row in partition 0) and
    ``merge_streams``; ``[sharded]``: ``SetUnionSampler(mesh=
    make_sampler_mesh(world=1))`` and the adaptive ``ShardedUnionSampler``
-   on its ``ShardedCatalog``, three ``sample(8192)`` each, bit-equal to the
-   unsharded engine with the same seed (rows, homes, fingerprints,
-   ``SamplerStats``), and both engines' rates in turns;
+   on its ``ShardedCatalog``, in their default per-rank device loop (one
+   CUDA graph per capacity class), three ``sample(8192)`` each, bit-equal
+   to the sharded host loop and to the unsharded device loop with the same
+   seed (rows, homes, fingerprints, ``SamplerStats``), and the three
+   engines' rates in turns; ``[host-engine]``: the host engine and three
+   of the reference's degrade paths, each held to exactly the
+   ``record_fallback`` events it expects — the mixed union (UQ1 with its
+   last cover piece's join given one dangling row at ``1 << 31``: that join
+   draws on the host, membership goes to the host oracle, the other joins
+   draw through B1/B2; two ``sample(4096)``), ``strict_paper_loop`` over
+   the card's sources (``sample(256)``), and EO refused by the device
+   backend then drawn by the host engine (``sample(1024)``);
    ``[sharded-est]``: ``warmup(method="random_walk", mesh=world 1)`` equal
    to ``[rw-warmup]`` (sizes, half-widths, walks, the cover's union);
    ``[shards-cli]``: the serve CLI with ``--shards 1`` (UQ1 at
    ``SHARDS_SCALE``, 4 requests); ``[sharded-w2]``: two processes on the
    one card in a gloo group (NCCL refuses two ranks on one device), UQ1 at
-   ``SHARDS_SCALE`` with ``shards=2``, 4 × 4096 on each rank: the same
-   stream on both ranks (a SHA-256 of the rows), rows in their home piece;
+   ``SHARDS_SCALE`` with ``shards=2``, 4 × 4096 on each rank in the
+   per-rank device loop (eager chunks: collectives are not captured) and
+   then in the host loop: the same stream on both ranks in each loop (a
+   SHA-256 of the rows), rows in their home piece, chunks and host syncs
+   per call, and both loops' per-rank rates in turns;
 11. small-input reference — UQ1 (static and adaptive) and UQ2 (pushdown,
    rejection and record mode) at scale 0.05 are sampled uniformly over
    their exact unions (chi-square), on the card, and every row is in its
@@ -119,7 +131,9 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
 Every served path runs the engine's default round loop,
 ``fused_rounds="device"``: one round captured as a CUDA graph per capacity
 class and replayed in chunks, one host sync per chunk; a replay adds the
-kernels recorded in one round to the launch counts.
+kernels recorded in one round to the launch counts.  No phase but
+``[host-engine]`` may record an engine fallback
+(``repro_torch.obs.fallback_events``): the run fails if one does.
 
 Between 4 and 5, ``[adaptive]`` serves the same UQ1 state under
 ``plan="adaptive"`` as ``[main]`` serves it under the static plan, with its
@@ -143,8 +157,10 @@ series, under the reference's names, equal the engine's counters.  The
 ``kernels`` rows of ``sorted_probe`` and ``probe_pick`` give their launches
 on each served path (``launches_by_path``; the online sampler's walks and
 draws, the random-walk warm-up, the baselines, the chain façade, the
-replicas, the sharded engine and its warm-up, the ``--shards 1`` CLI and
-rank 0 of ``[sharded-w2]`` among them), and the ``probe_pick`` row
+replicas, the sharded engine in both loops and its warm-up, the
+``[host-engine]`` mixed union and ``strict_paper_loop``, the ``--shards 1``
+CLI and rank 0 of ``[sharded-w2]`` in both loops among them), and the
+``probe_pick`` row
 its time at walk width (``walk_ms`` and the ``walk_`` keys).
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -1654,15 +1670,15 @@ def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
 
 def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
                   n: int = 8192) -> dict:
-    """World 1 on ``wl`` (no process group, no collective):
-    ``SetUnionSampler(mesh=make_sampler_mesh(world=1))`` and, on the same
-    ``ShardedCatalog``, the adaptive ``ShardedUnionSampler``; each against
-    the unsharded engine with the same seed on the same backend (the engine
-    a ``SetUnionSampler`` without a mesh runs, in its host loop, the
-    sharded engine's only mode): ``calls`` × ``sample(n)``
-    bit-equal in rows, homes, fingerprints and ``SamplerStats``, with the
-    launch counts set to 0 just before the sharded calls and read just
-    after.  Then both engines' rates in turns on one state."""
+    """World 1 on ``wl`` (no process group, no collective), per plan: the
+    sharded engine's device loop (``SetUnionSampler(mesh=make_sampler_mesh(
+    world=1))``, the default, and the adaptive ``ShardedUnionSampler`` on
+    the same ``ShardedCatalog``; one CUDA graph per capacity class), its host
+    loop and the unsharded device loop, all from the same seed on the same
+    backend: ``calls`` × ``sample(n)`` bit-equal in rows, homes,
+    fingerprints and ``SamplerStats``, with the launch counts set to 0 just
+    before the device-mode calls and read just after (and apart for the host
+    mode).  Then the three engines' rates in turns on one state."""
     import torch
     from repro_torch.core.backends.torch_backend import TorchUnionSampler
     from repro_torch.core.sharding import ShardedUnionSampler, \
@@ -1677,29 +1693,46 @@ def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
     out = {"sharded_catalog_build_s": time.perf_counter() - t0,
            "device": str(meshed.device)}
     scat = meshed.engine.scat
+
+    def sharded(plan, mode):
+        return ShardedUnionSampler(scat, est.cover, seed=0,
+                                   round_batch=round_batch,
+                                   stats=SamplerStats(), plan=plan,
+                                   fused_rounds=mode)
+
     for plan in ("static", "adaptive"):
-        sharded = (meshed.engine if plan == "static" else ShardedUnionSampler(
-            scat, est.cover, seed=0, round_batch=round_batch,
-            stats=SamplerStats(), plan=plan))
-        # the unsharded host loop: the sharded engine's own loop mode
+        dev = meshed.engine if plan == "static" else sharded(plan, "device")
+        host = sharded(plan, "host")
         plain = TorchUnionSampler(meshed.backend, est.cover, seed=0,
                                   round_batch=round_batch,
-                                  stats=SamplerStats(), plan=plan,
-                                  fused_rounds="host")
+                                  stats=SamplerStats(), plan=plan)
+        if (dev.fused_rounds, plain.fused_rounds) != ("device", "device"):
+            raise AssertionError("[sharded] the device loop is not the "
+                                 "default")
         torch.cuda.synchronize()
         build.reset_launch_counts()
-        got = [sharded.sample(n) for _ in range(calls)]
+        got = [dev.sample(n) for _ in range(calls)]
         launches = _launches()
         _require_probes(f"sharded {plan}", launches)
+        chunks = [dev.last_chunks, dev.last_host_syncs]
+        if dev.last_host_syncs != dev.last_chunks + 1 or not all(
+                cb.graph is not None for cb in dev._buffers.values()):
+            raise AssertionError(f"[sharded] {plan}: the device loop did not "
+                                 "replay a captured graph per chunk")
+        build.reset_launch_counts()
+        want_host = [host.sample(n) for _ in range(calls)]
+        host_launches = _launches()
         want = [plain.sample(n) for _ in range(calls)]
         # (a SampleSet's stats are the engine's running counters)
-        if not (all(np.array_equal(a.matrix(), b.matrix())
-                    and np.array_equal(a.home, b.home)
-                    and np.array_equal(a.fingerprint, b.fingerprint)
-                    for a, b in zip(got, want))
-                and got[-1].stats.as_dict() == want[-1].stats.as_dict()):
-            raise AssertionError(f"[sharded] {plan}: world 1 differs from "
-                                 "the unsharded engine")
+        for other, what in ((want_host, "the sharded host loop"),
+                            (want, "the unsharded device loop")):
+            if not (all(np.array_equal(a.matrix(), b.matrix())
+                        and np.array_equal(a.home, b.home)
+                        and np.array_equal(a.fingerprint, b.fingerprint)
+                        for a, b in zip(got, other))
+                    and got[-1].stats.as_dict() == other[-1].stats.as_dict()):
+                raise AssertionError(f"[sharded] {plan}: the world-1 device "
+                                     f"loop differs from {what}")
         check_membership(meshed, got[-1].rows, got[-1].home)
 
         def rate(engine, k=4):
@@ -1708,14 +1741,18 @@ def phase_sharded(wl, est, round_batch: int, backend, calls: int = 3,
                 engine.sample(round_batch)
             torch.cuda.synchronize()
             return k * round_batch / (time.perf_counter() - t0)
+        engines = (("unsharded device", plain), ("sharded device", dev),
+                   ("sharded host", host))
         out[plan] = {"calls": calls, "n": n, "bit_equal": True,
-                     "launches": launches,
-                     "shard_piece_batches": list(sharded.shard_piece_batches),
+                     "launches": launches, "host_launches": host_launches,
+                     "last_call_chunks_syncs": chunks,
+                     "capture_s": {str(C): t for C, t in
+                                   sorted(dev.capture_seconds.items())},
+                     "shard_piece_batches": list(dev.shard_piece_batches),
                      "psi": got[-1].stats.psi(),
                      "engine_samples_per_s_in_turns": [
-                         [name, rate(e)] for name, e in (
-                             ("unsharded", plain), ("sharded", sharded),
-                             ("sharded", sharded), ("unsharded", plain))]}
+                         [name, rate(e)]
+                         for name, e in engines + engines[::-1]]}
     return out
 
 
@@ -1748,10 +1785,162 @@ def phase_sharded_est(wl, rw_out: dict, max_walks: int) -> dict:
             "union_size_cover": est.union_size_cover, "launches": launches}
 
 
+def _fallback_seq() -> int:
+    """The sequence number of the newest engine-fallback event (-1: none)."""
+    from repro_torch import obs
+    return max([e["seq"] for e in obs.fallback_events()], default=-1)
+
+
+def _fallbacks_since(seq: int) -> list:
+    from repro_torch import obs
+    return [(e["reason"], e["join"]) for e in obs.fallback_events()
+            if e["seq"] > seq]
+
+
+def _dangling_copy(spec, big: int = 1 << 31):
+    """``spec`` with one extra row in its last (leaf) relation whose edge
+    key is ``big``: the row joins nothing, so the join's output is
+    ``spec``'s, but the packed edge domain leaves int32, which is the
+    reference's ``int32_domain`` degrade."""
+    from repro_torch.core.joins import JoinNode, JoinSpec
+    from repro_torch.core.relation import Relation
+    leaf = spec.nodes[-1]
+    cols = {a: np.concatenate([c, c[:1]])
+            for a, c in leaf.relation.columns.items()}
+    cols[leaf.edge_attrs[0]][-1] = big
+    rel = Relation(f"{leaf.relation.name}#big", cols)
+    return JoinSpec(spec.name, spec.nodes[:-1] + [JoinNode(
+        leaf.alias, rel, leaf.parent, leaf.edge_attrs, leaf.kind)])
+
+
+def phase_host_engine(wl, est, backend, n: int = 4096,
+                      strict_n: int = 256, eo_n: int = 1024) -> dict:
+    """The host engine and three of the reference's degrade paths on
+    ``wl``, each run held to exactly the ``record_fallback`` events it
+    expects:
+
+    * the mixed union: ``wl`` with the join of its last cover piece of
+      positive size given one dangling row at ``1 << 31``
+      (``_dangling_copy``), so that join draws
+      on the host (``int32_domain``), membership goes to the host oracle
+      (``host_oracle``) and the other joins draw through B1/B2 on the card;
+      two ``sample(n)`` calls of the host probe loop, launch counts set to 0
+      just before and read just after;
+    * ``strict_paper_loop`` over ``backend`` (``strict_paper_loop``): one
+      candidate per selection, each drawn through B1/B2;
+    * ``join_method="eo"`` on the device backend records ``join_method`` and
+      raises; the host engine then draws EO with no event.
+
+    Every row lies in its home piece and in no earlier one."""
+    import warnings
+    import torch
+    from repro_torch.core.backends.numpy_backend import NumpyCandidateSource
+    from repro_torch.core.backends.torch_backend import (TorchBackend,
+                                                         TorchCandidateSource)
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.kernels import build
+    out = {}
+
+    def expect(label, seq, want):
+        got = _fallbacks_since(seq)
+        if got != want:
+            raise AssertionError(f"[host-engine] {label}: fallbacks {got}, "
+                                 f"expected {want}")
+        return [list(g) for g in got]
+
+    # the mixed union
+    bad = [name for name in est.cover.order
+           if est.cover.piece_sizes[name] > 0][-1]
+    joins = [_dangling_copy(j) if j.name == bad else j for j in wl.joins]
+    seq = _fallback_seq()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        mixed_be = TorchBackend(wl.cat, joins, device="cuda", seed=0)
+        mixed = SetUnionSampler(wl.cat, joins, est.cover, seed=0,
+                                backend=mixed_be)
+        mixed.prober                        # the oracle is built lazily
+    build_s = time.perf_counter() - t0
+    if set(mixed_be.degraded) != {bad} or mixed.engine is not None:
+        raise AssertionError("[host-engine] the mixed union did not degrade "
+                             f"{bad!r} alone: {mixed_be.degraded}")
+    kinds = {name: type(src).__name__ for name, src in mixed.sources.items()}
+    if not (isinstance(mixed.sources[bad], NumpyCandidateSource) and all(
+            isinstance(src, TorchCandidateSource)
+            for name, src in mixed.sources.items() if name != bad)):
+        raise AssertionError(f"[host-engine] mixed sources: {kinds}")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [mixed.sample(n) for _ in range(2)]
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    _require_probes("host-engine mixed", launches)
+    check_membership(mixed, got[-1].rows, got[-1].home)
+    homes = np.bincount(np.concatenate([g.home for g in got]),
+                        minlength=len(mixed.order))
+    if homes[mixed.order.index(bad)] <= 0:
+        raise AssertionError(f"[host-engine] {bad!r} served no row")
+    out["mixed"] = {
+        "degraded": bad, "sources": kinds, "build_s": build_s,
+        "warnings": sorted({str(w.message)[:60] for w in warned}),
+        "calls": 2, "n": n, "seconds": dt, "samples_per_s": 2 * n / dt,
+        "psi": got[-1].stats.psi(), "home_counts": homes.tolist(),
+        "launches": launches,
+        "fallbacks": expect("mixed union", seq, [("int32_domain", bad),
+                                                 ("host_oracle", "")])}
+    # strict_paper_loop over the card's sources
+    seq = _fallback_seq()
+    strict = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0,
+                             backend=backend, strict_paper_loop=True)
+    for src in strict.sources.values():
+        src._buf = None     # rows [baselines] left: the run refills anew
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ss = strict.sample(strict_n)
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    if strict.engine is not None or launches["probe_pick"] + \
+            launches["sorted_probe"] <= 0:
+        raise AssertionError("[host-engine] strict_paper_loop did not run "
+                             "the host loop over the card's sources")
+    check_membership(strict, ss.rows, ss.home)
+    out["strict_paper_loop"] = {
+        "n": strict_n, "seconds": dt, "samples_per_s": strict_n / dt,
+        "iterations": ss.stats.iterations, "launches": launches,
+        "fallbacks": expect("strict_paper_loop", seq,
+                            [("strict_paper_loop", "")])}
+    # EO: refused on the device (recorded), drawn by the host engine
+    seq = _fallback_seq()
+    try:
+        TorchBackend(wl.cat, wl.joins, device="cuda", join_method="eo")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("[host-engine] the device backend ran EO")
+    refused = expect("eo on the device", seq, [("join_method", "")])
+    seq = _fallback_seq()
+    t0 = time.perf_counter()
+    eo = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0,
+                         backend="numpy", join_method="eo")
+    eo_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ss = eo.sample(eo_n)
+    dt = time.perf_counter() - t0
+    check_membership(eo, ss.rows, ss.home)
+    out["eo"] = {"n": eo_n, "build_s": eo_build_s, "seconds": dt,
+                 "samples_per_s": eo_n / dt, "psi": ss.stats.psi(),
+                 "device_refused": refused,
+                 "fallbacks": expect("eo on the host", seq, [])}
+    return out
+
+
 def _w2_rank(rank: int, port: int, scale: float, requests: int,
              samples: int, round_batch: int, results) -> None:
     """One rank of ``[sharded-w2]``: the serve CLI's sampler with
-    ``shards=2`` over a gloo group on the one card."""
+    ``shards=2`` over a gloo group on the one card (its default, the
+    per-rank device loop, with its chunks and host syncs per call), then
+    the host loop on the same mesh, and both rates in turns."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -1760,27 +1949,57 @@ def _w2_rank(rank: int, port: int, scale: float, requests: int,
                             timeout=datetime.timedelta(seconds=120))
     try:
         import hashlib
+        from repro_torch.core.union_sampler import SetUnionSampler
         from repro_torch.kernels import build
         from repro_torch.launch.serve import build_sampler
-        sampler, _, _, _ = build_sampler("UQ1", scale, seed=0, device="cuda",
-                                         round_batch=round_batch, shards=2)
-        sampler.sample(256)
-        torch.cuda.synchronize()
-        build.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = [sampler.sample(samples) for _ in range(requests)]
-        dt = time.perf_counter() - t0
-        launches = _launches()
-        mat = np.concatenate([np.concatenate([g.matrix(), g.home[:, None]],
-                                             axis=1) for g in got])
-        last = got[-1]
-        check_membership(sampler, last.rows, last.home)
-        results.put((rank, {"seconds": dt,
-                            "samples_per_s": requests * samples / dt,
-                            "launches": launches, "rows": mat.shape[0],
-                            "digest": hashlib.sha256(np.ascontiguousarray(
-                                mat, np.int64).tobytes()).hexdigest(),
-                            "device": str(sampler.device)}))
+        sampler, wl, est, _ = build_sampler("UQ1", scale, seed=0,
+                                            device="cuda",
+                                            round_batch=round_batch, shards=2)
+        host = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=0,
+                               backend=sampler.backend,
+                               round_batch=round_batch,
+                               mesh=sampler.engine.mesh, fused_rounds="host")
+        dev = sampler.engine
+        if dev.fused_rounds != "device":
+            raise AssertionError("the sharded engine's default is not the "
+                                 "device loop")
+        res = {"device": str(sampler.device)}
+        for mode, s in (("device", sampler), ("host", host)):
+            s.sample(256)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, syncs = [], []
+            for _ in range(requests):
+                got.append(s.sample(samples))
+                syncs.append([s.engine.last_chunks, s.engine.last_host_syncs])
+            dt = time.perf_counter() - t0
+            launches = _launches()
+            if any(h != c + 1 for c, h in syncs):
+                raise AssertionError(f"{mode}: host syncs != chunks + 1")
+            mat = np.concatenate([np.concatenate(
+                [g.matrix(), g.home[:, None]], axis=1) for g in got])
+            check_membership(s, got[-1].rows, got[-1].home)
+            res[mode] = {
+                "seconds": dt, "samples_per_s": requests * samples / dt,
+                "launches": launches, "rows": mat.shape[0],
+                "chunks_syncs_per_call": syncs,
+                "digest": hashlib.sha256(np.ascontiguousarray(
+                    mat, np.int64).tobytes()).hexdigest()}
+        # both loops' per-rank rates in turns (every rank runs the same
+        # calls, so the collectives stay matched)
+        turns = []
+        for mode, s in (("device", sampler), ("host", host), ("host", host),
+                        ("device", sampler)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(requests):
+                s.sample(samples)
+            torch.cuda.synchronize()
+            turns.append([mode, requests * samples
+                          / (time.perf_counter() - t0)])
+        res["samples_per_s_in_turns"] = turns
+        results.put((rank, res))
     except BaseException as e:
         results.put((rank, {"error": repr(e)}))
         raise
@@ -1792,9 +2011,10 @@ def phase_sharded_w2(scale: float, round_batch: int, requests: int = 4,
                      samples: int = 4096, timeout: float = 150.0) -> dict:
     """Two processes on the one card in a gloo group (NCCL refuses two
     ranks on one device): UQ1 at ``scale`` with ``shards=2``, ``requests``
-    × ``sample(samples)`` on each rank.  Both ranks must return the same
-    rows (a digest of the whole stream) with their rows in their home
-    pieces, and both probes must launch on each."""
+    × ``sample(samples)`` on each rank, in the device loop and then the host
+    loop.  In each loop both ranks must return the same rows (a digest of
+    the whole stream) with their rows in their home pieces, one host sync
+    per chunk plus the fetch, and both probes must launch on each."""
     import socket
     import torch.multiprocessing as mp
     with socket.socket() as s:
@@ -1824,11 +2044,13 @@ def phase_sharded_w2(scale: float, round_batch: int, requests: int = 4,
            for r, p in enumerate(procs)):
         raise AssertionError(f"[sharded-w2] ranks failed: exit codes "
                              f"{[p.exitcode for p in procs]}, {got}")
-    if got[0]["digest"] != got[1]["digest"] or got[0]["rows"] != \
-            requests * samples:
-        raise AssertionError(f"[sharded-w2] the ranks' streams differ: {got}")
-    for r in got.values():
-        _require_probes("sharded-w2", r["launches"])
+    for mode in ("device", "host"):
+        a, b = got[0][mode], got[1][mode]
+        if a["digest"] != b["digest"] or a["rows"] != requests * samples:
+            raise AssertionError(f"[sharded-w2] {mode}: the ranks' streams "
+                                 f"differ: {got}")
+        for r in (a, b):
+            _require_probes(f"sharded-w2 {mode}", r["launches"])
     return {"scale": scale, "world": 2, "backend": "gloo",
             "requests": requests, "samples": samples,
             "wall_s": time.perf_counter() - t0, "ranks": got}
@@ -2086,11 +2308,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # wall seconds of each phase, printed on the [phases] line
+    # wall seconds of each phase, printed on the [phases] line; a phase
+    # that records an engine fallback fails the run ([host-engine] consumes
+    # the ones it expects, and only those)
     marks = [("start", time.perf_counter())]
+    fallback_seq = [_fallback_seq()]
 
     def mark(label):
         marks.append((label, time.perf_counter()))
+        got = _fallbacks_since(fallback_seq[0])
+        if got:
+            raise AssertionError(f"[{label}] recorded engine fallbacks: "
+                                 f"{got}")
 
     # 1. device and build (one library holds every kernel)
     card = _card_line()
@@ -2279,10 +2508,18 @@ def main(argv=None) -> int:
     print("[replicas] " + json.dumps(rep_out), flush=True)
     mark("replicas")
     sh_out = phase_sharded(wl1, est1, args.round_batch, backend1)
-    path_launches("UQ1 sharded static", sh_out["static"])
-    path_launches("UQ1 sharded adaptive", sh_out["adaptive"])
+    for plan in ("static", "adaptive"):
+        path_launches(f"UQ1 sharded device {plan}", sh_out[plan])
+        path_launches(f"UQ1 sharded host {plan}",
+                      {"launches": sh_out[plan]["host_launches"]})
     print("[sharded] " + json.dumps(sh_out), flush=True)
     mark("sharded")
+    he_out = phase_host_engine(wl1, est1, backend1)
+    fallback_seq[0] = _fallback_seq()       # its own, checked in the phase
+    path_launches("UQ1 host-engine mixed union", he_out["mixed"])
+    path_launches("UQ1 strict_paper_loop", he_out["strict_paper_loop"])
+    print("[host-engine] " + json.dumps(he_out), flush=True)
+    mark("host-engine")
     del backend1
     she_out = phase_sharded_est(wl1, rw_out, args.rw_max_walks)
     pick_row["launches_by_path"]["UQ1 sharded rw-warmup"] = \
@@ -2304,7 +2541,10 @@ def main(argv=None) -> int:
     print("[shards-cli] " + json.dumps(scli_out), flush=True)
     mark("shards-cli")
     w2_out = phase_sharded_w2(SHARDS_SCALE, args.round_batch)
-    path_launches("UQ1 sharded world 2 (rank 0)", w2_out["ranks"][0])
+    path_launches("UQ1 sharded world 2 device (rank 0)",
+                  w2_out["ranks"][0]["device"])
+    path_launches("UQ1 sharded world 2 host (rank 0)",
+                  w2_out["ranks"][0]["host"])
     print("[sharded-w2] " + json.dumps(w2_out), flush=True)
     mark("sharded-w2")
 

@@ -45,8 +45,8 @@ the reference position for position (on the card the device loop needs the
 Philox source: a graph cannot replay host-made uniforms).
 
 Limits: ``method="ew"`` weights, non-negative dict-encoded values whose
-packed edge domains fit in int32.  A join outside the int32 domain raises a
-``ValueError`` naming it (the reference degrades such a join to the host).
+packed edge domains fit in int32.  A join outside the int32 domain degrades
+to a host candidate source, as in the reference (:class:`TorchBackend`).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +71,7 @@ from ..index import Catalog
 from ..join_sampler import JoinSampler
 from ..joins import JoinSpec
 from ..predicates import compile_preds_torch, relation_mask
+from .base import Backend
 
 _I32_LIM = 1 << 31
 _M32 = 0xFFFFFFFF
@@ -523,14 +525,29 @@ class TorchMembershipOracle:
         return np.stack([self.contains(nm, rows) for nm in names], axis=1)
 
 
-class TorchBackend:
+class TorchBackend(Backend):
     """Device-resident engine state: tree joins, membership indexes and
-    per-join candidate sources."""
+    per-join candidate sources.
+
+    As the reference's ``JaxBackend`` does, a join outside the int32 device
+    domain degrades alone: it draws from a host
+    :class:`~repro_torch.core.backends.numpy_backend.NumpyCandidateSource`
+    (a warning and a ``repro_engine_fallback_total{reason="int32_domain"}``
+    event), the other joins stay on the card, and fused rounds turn off for
+    the union (``degraded`` names the joins); membership that cannot be
+    built on the device probes through the host oracle (``"host_oracle"``).
+    Only ``join_method="ew"`` runs on the device: another method records
+    ``"join_method"`` and raises.  A missing card, a failed kernel build or
+    launch raise; nothing degrades for them."""
 
     name = "torch"
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], device=None,
-                 seed: int = 0):
+                 seed: int = 0, join_method: str = "ew"):
+        if join_method != "ew":
+            obs.record_fallback("join_method", detail=join_method)
+            raise ValueError("torch backend: only method='ew' runs on the "
+                             "device (eo/wj walks stay on the numpy backend)")
         self.device = resolve_device(device)
         self.cat = cat
         self.joins = list(joins)
@@ -541,15 +558,23 @@ class TorchBackend:
                 f"joins must share an output schema; got {sorted(schemas)}")
         self.attrs = list(self.joins[0].output_attrs)
         self.trees: Dict[str, TorchTreeJoin] = {}
+        self.degraded: Dict[str, str] = {}          # join name -> reason
         for j in self.joins:
             try:
                 self.trees[j.name] = TorchTreeJoin(cat, j, device=self.device)
             except ValueError as e:
-                raise ValueError(f"torch backend: join {j.name!r} cannot run "
-                                 f"on the device: {e}") from e
+                self.degraded[j.name] = str(e)
+                obs.record_fallback("int32_domain", detail=str(e),
+                                    join=j.name)
+        if self.degraded:
+            warnings.warn(
+                "torch backend: joins "
+                f"{sorted(self.degraded)} fall back to host candidate draws "
+                f"({'; '.join(sorted(set(self.degraded.values())))}); fused "
+                "device rounds are disabled for this union", stacklevel=2)
         self._members: Optional[Dict[str, TorchJoinMembership]] = None
-        self._oracle: Optional[TorchMembershipOracle] = None
-        self._sources: Dict[str, TorchCandidateSource] = {}
+        self._oracle = None
+        self._sources: Dict[str, object] = {}
 
     @property
     def members(self) -> Dict[str, TorchJoinMembership]:
@@ -558,25 +583,41 @@ class TorchBackend:
                              for j in self.joins}
         return self._members
 
-    def oracle(self) -> TorchMembershipOracle:
+    def oracle(self):
         if self._oracle is None:
-            self._oracle = TorchMembershipOracle(self.members, self.attrs,
-                                                 self.device)
+            try:
+                self._oracle = TorchMembershipOracle(self.members, self.attrs,
+                                                     self.device)
+            except ValueError as e:
+                # the draw side's degrade rule: values outside the int32
+                # domain keep membership on the (128-bit, exact) host prober
+                warnings.warn(
+                    f"torch backend: device membership unavailable ({e}); "
+                    "probing through the host oracle", stacklevel=2)
+                obs.record_fallback("host_oracle", detail=str(e))
+                from ..membership import MembershipProber
+                self._oracle = MembershipProber(self.cat, self.joins)
         return self._oracle
 
-    def source(self, join_name: str, uniforms=None) -> "TorchCandidateSource":
+    def source(self, join_name: str, uniforms=None):
         """The candidate source of one join, built on first use: join ``i``'s
         Philox stream is seeded ``seed + i`` (the reference's seeding);
-        ``uniforms`` replaces it."""
+        ``uniforms`` replaces it.  A degraded join's source is the host's."""
         src = self._sources.get(join_name)
         if src is None:
             i = [j.name for j in self.joins].index(join_name)
-            src = self._sources[join_name] = TorchCandidateSource(
-                self.trees[join_name], seed=self.seed + i, uniforms=uniforms)
+            if join_name in self.degraded:
+                from .numpy_backend import NumpyCandidateSource
+                src = NumpyCandidateSource(self.cat, self.joins[i])
+            else:
+                src = TorchCandidateSource(self.trees[join_name],
+                                           seed=self.seed + i,
+                                           uniforms=uniforms)
+            self._sources[join_name] = src
         return src
 
     def supports_fused_rounds(self) -> bool:
-        return True
+        return not self.degraded
 
 
 class TorchCandidateSource:
@@ -631,7 +672,12 @@ class TorchCandidateSource:
         self._buf_pos = 0
         return int(idx.shape[0])
 
-    def draw(self, count: int) -> Tuple[Dict[str, np.ndarray], int]:
+    def draw(self, rng, count: int, batch: Optional[int] = None
+             ) -> Tuple[Dict[str, np.ndarray], int]:
+        """``count`` rows and the candidate draws spent on them.  ``rng``
+        and ``batch`` are the host protocol's: this source draws from its
+        own device stream in rounds of ``device_batch``, as the reference's
+        ``JaxCandidateSource`` does."""
         from ..join_sampler import EmptyJoinError
         if self.is_empty():
             raise EmptyJoinError(f"join {self.join_name!r} is empty")
@@ -801,7 +847,8 @@ def _piece_batches(probs, round_batch: int, balance: str,
 
 
 def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
-                   cap: int, trash: int, W: int):
+                   cap: int, trash: int, W: int, bank_base=None,
+                   fresh_base=None):
     """Scatter one round's emission into ``out`` and roll the banks.
 
     Rows travel as ``(rows, A+1)`` int32 matrices (last column = home
@@ -812,16 +859,21 @@ def _emit_and_bank(out, pos, bank, head, count, cols, dt, ft, acc,
     order; per piece the ``dt`` banked rows (FIFO, oldest first) then the
     ``ft`` fresh rows.  Surplus accepts are pushed at the ring tail.
     ``out`` and ``bank`` are updated in place; the banked rows are gathered
-    before any push."""
+    before any push.  ``bank_base``/``fresh_base`` override the per-piece
+    output offsets of the banked and fresh rows: the sharded loop passes
+    global offsets, so each rank scatters its rows straight to their final
+    positions (by default this call's take is packed at ``pos``)."""
     nj = dt.shape[0]
     dev = dt.device
     take = dt + ft
-    base = pos + torch.cumsum(take, 0) - take        # exclusive prefix
-    fresh_base = base + dt
+    if bank_base is None:
+        bank_base = pos + torch.cumsum(take, 0) - take   # exclusive prefix
+        fresh_base = bank_base + dt
     r = torch.arange(W, device=dev)
     bmask = r[None, :] < dt[:, None]
     bidx = (head[:, None] + r[None, :]) % cap
-    bdst = torch.clamp(torch.where(bmask, base[:, None] + r[None, :], trash),
+    bdst = torch.clamp(torch.where(bmask, bank_base[:, None] + r[None, :],
+                                   trash),
                        max=trash).reshape(-1)
     jrow = torch.arange(nj, device=dev)[:, None]
     bvals = bank[jrow, bidx]                          # (nj, W, A+1) copy
@@ -854,6 +906,9 @@ class _LoopState:
     head: torch.Tensor      # (nj,) int64
     count: torch.Tensor     # (nj,) int64
     ema: Optional[torch.Tensor] = None  # (nj, 4) int32, plan="adaptive" only
+    # (nj,) int64 bank occupancy over all ranks at round start: the sharded
+    # device loop's budget input under plan="adaptive" (its banks are per rank)
+    gcount: Optional[torch.Tensor] = None
 
 
 class _CallBuffers:
@@ -1246,8 +1301,12 @@ class TorchUnionSampler:
         cb.rounds.add_(active.to(torch.int64))
 
     # -- the loop --------------------------------------------------------------
+    def _bank_cap(self) -> int:
+        """Ring capacity of one piece's surplus bank."""
+        return self.surplus_cap
+
     def _init_state(self) -> _LoopState:
-        nj, cap, dev = len(self.order), self.surplus_cap, self.device
+        nj, cap, dev = len(self.order), self._bank_cap(), self.device
         z = lambda: torch.zeros(nj, dtype=torch.int64, device=dev)  # noqa: E731
         return _LoopState(
             owed=z(), dead=torch.zeros(nj, dtype=torch.bool, device=dev),
@@ -1285,7 +1344,7 @@ class TorchUnionSampler:
             self._state = self._init_state()
         cb = self._call_buffers(1 << max(10, (n - 1).bit_length()))
         device_loop = self.fused_rounds == "device"
-        if device_loop and self.device.type == "cuda" and cb.graph is None:
+        if device_loop and self._graphs() and cb.graph is None:
             self._capture(cb)
         cb.ctr.zero_()
         cb.n.fill_(n)
@@ -1299,12 +1358,30 @@ class TorchUnionSampler:
         # the call's rows, shuffled, and its counters (the adaptive EMAs
         # too) leave the static buffers in one tensor: the one fetch
         shuffle = self.uniforms.permutation(n)
-        parts = [cb.out[:n][shuffle].reshape(-1).to(torch.int64),
+        parts = [self._call_rows(cb, n)[shuffle].reshape(-1).to(torch.int64),
                  cb.ctr[_CTR_STATS:]]
         if self.plan == "adaptive":
             parts.append(self._state.ema.reshape(-1).to(torch.int64))
         return _PendingSample(self, n, torch.cat(parts), total, rounds,
                               bool(fail))
+
+    def _graphs(self) -> bool:
+        """Whether the device loop replays a captured CUDA graph (on the
+        card) or runs its step eagerly (on the CPU)."""
+        return self.device.type == "cuda"
+
+    def _call_rows(self, cb: _CallBuffers, n: int) -> torch.Tensor:
+        """The call's ``n`` rows in emission order."""
+        return cb.out[:n]
+
+    def _mark_uniforms(self):
+        return self.uniforms.mark()
+
+    def _rewind_uniforms(self, mark, rounds: int) -> None:
+        """Put the round stream where ``rounds`` rounds from ``mark`` leave
+        it (the device loop's gated rounds drew past that)."""
+        self.uniforms.rewind(mark, rounds, self._slot_width,
+                             self._round_shapes())
 
     def _sync(self, cb: _CallBuffers) -> Tuple[int, int, int]:
         """The loop's one host sync: ``(total, rounds, fail)``."""
@@ -1333,13 +1410,12 @@ class TorchUnionSampler:
         done = 0
         while True:
             K = max(1, min(K, self.max_rounds - done))
-            mark = self.uniforms.mark()
+            mark = self._mark_uniforms()
             self._replay(cb, K)
             total, rounds, fail = self._sync(cb)
             ran = rounds - done
             if ran < K:         # gated rounds only once the call is done
-                self.uniforms.rewind(mark, ran, self._slot_width,
-                                     self._round_shapes())
+                self._rewind_uniforms(mark, ran)
                 self.last_wasted_rounds += K - ran
             done = rounds
             if self._done(n, total, rounds, fail):
@@ -1380,7 +1456,7 @@ class TorchUnionSampler:
                 "another uniform source with fused_rounds='host'")
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
-            mark = self.uniforms.mark()
+            mark = self._mark_uniforms()
             cb.ctr.zero_()              # n = 0: every warm-up round is gated
             cur = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
@@ -1399,8 +1475,7 @@ class TorchUnionSampler:
                     capture_error_mode="thread_local"):
                 self._round_step(cb)
             cb.replay_launches = recorded
-            self.uniforms.rewind(mark, 0, self._slot_width,
-                                 self._round_shapes())
+            self._rewind_uniforms(mark, 0)
         cb.graph = g
         cb.capture_s = time.perf_counter() - t0
         self.capture_seconds[cb.C] = cb.capture_s

@@ -7,6 +7,8 @@ range per query), degree lookup and EW aggregation reduces to
 ``np.searchsorted`` over these arrays; the device engine builds its own
 int32 copies (:mod:`repro_torch.core.backends.torch_backend`) and probes
 them with the CUDA kernels of :mod:`repro_torch.kernels.probe`.
+:class:`RowSetIndex` is the host engine's membership index over whole rows
+(sorted 128-bit row fingerprints, :mod:`repro_torch.core.membership`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .relation import Relation
+from .relation import Relation, fingerprint128
 
 
 def as_tuple(x: Union[str, Sequence[str], None]) -> Tuple[str, ...]:
@@ -44,6 +46,10 @@ class SortedIndex:
         lo = np.searchsorted(self.sorted_vals, q, side="left")
         hi = np.searchsorted(self.sorted_vals, q, side="right")
         return lo, hi
+
+    def contains(self, queries: np.ndarray) -> np.ndarray:
+        lo, hi = self.ranges(queries)
+        return hi > lo
 
     def row_ids_at(self, pos: np.ndarray) -> np.ndarray:
         """Row ids of sorted positions (for gathering matched rows)."""
@@ -75,6 +81,46 @@ def build_index(rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:
 
 
 @dataclasses.dataclass
+class RowSetIndex:
+    """Membership index over whole rows of a relation (projected sub-tuples).
+
+    Sorted 64-bit primary fingerprints + secondary fingerprints for
+    verification: a probe matches iff the primary fp is found AND one of the
+    candidates' secondary fps matches (128 bits in all).
+    """
+
+    relation: str
+    attrs: Tuple[str, ...]
+    sorted_fp1: np.ndarray
+    fp2_in_fp1_order: np.ndarray
+
+    def contains_rows(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
+        cols = [np.asarray(rows[a]) for a in self.attrs]
+        fp = fingerprint128(cols)
+        lo = np.searchsorted(self.sorted_fp1, fp[:, 0], side="left")
+        hi = np.searchsorted(self.sorted_fp1, fp[:, 0], side="right")
+        out = np.zeros(fp.shape[0], dtype=bool)
+        # verify secondaries; ranges are tiny (fp collisions ~ none)
+        span = hi - lo
+        simple = span <= 1
+        pos = np.clip(lo, 0, max(self.sorted_fp1.shape[0] - 1, 0))
+        if self.sorted_fp1.shape[0]:
+            out[simple] = (span[simple] == 1) & (
+                self.fp2_in_fp1_order[pos[simple]] == fp[simple, 1])
+        for i in np.nonzero(~simple)[0]:
+            out[i] = bool(np.any(self.fp2_in_fp1_order[lo[i]:hi[i]]
+                                 == fp[i, 1]))
+        return out
+
+
+def build_rowset_index(rel: Relation, attrs: Sequence[str]) -> RowSetIndex:
+    attrs = tuple(attrs)
+    fp = fingerprint128([rel.columns[a] for a in attrs])
+    order = np.argsort(fp[:, 0], kind="stable")
+    return RowSetIndex(rel.name, attrs, fp[order, 0], fp[order, 1])
+
+
+@dataclasses.dataclass
 class ColumnStats:
     distinct: int
     max_degree: int
@@ -85,10 +131,11 @@ class ColumnStats:
 
 
 class Catalog:
-    """Caches sorted indexes and column statistics."""
+    """Caches sorted indexes, row-set indexes and column statistics."""
 
     def __init__(self) -> None:
         self._indexes: Dict[Tuple[str, Tuple[str, ...]], SortedIndex] = {}
+        self._rowsets: Dict[Tuple[str, Tuple[str, ...]], RowSetIndex] = {}
         self._stats: Dict[Tuple[str, Tuple[str, ...]], ColumnStats] = {}
         self._relations: Dict[str, Relation] = {}   # planner.plan_key reads it
 
@@ -98,6 +145,13 @@ class Catalog:
         if k not in self._indexes:
             self._indexes[k] = build_index(rel, key_attrs)
         return self._indexes[k]
+
+    def rowset(self, rel: Relation, attrs: Sequence[str]) -> RowSetIndex:
+        self._relations[rel.name] = rel
+        k = (rel.name, tuple(sorted(attrs)))
+        if k not in self._rowsets:
+            self._rowsets[k] = build_rowset_index(rel, sorted(attrs))
+        return self._rowsets[k]
 
     def stats(self, rel: Relation, key_attrs: Sequence[str]) -> ColumnStats:
         k = (rel.name, tuple(key_attrs))

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +38,7 @@ import numpy as np
 from ..device import mesh_device
 from .. import obs
 from ..obs import TraceRing
+from .backends import Backend, get_backend
 from .cover import Cover, build_cover
 from .estimators import EstimatorBackend, get_estimator
 from .framework import estimate_union
@@ -48,7 +50,8 @@ from .predicates import (pred_mask_np, scaled_overlap_estimate,
                          selectivity_factor)
 from .relation import fingerprint128
 from .size_estimation import olken_bound
-from .union_sampler import SampleSet, SamplerStats
+from .union_sampler import (SampleSet, SamplerStats, _baseline_sources,
+                            pop_residual_rejects)
 
 Rows = Dict[str, np.ndarray]
 
@@ -68,31 +71,51 @@ class _Accepted:
 class OnlineUnionSampler:
     """Algorithm 2: histogram init + random-walk refinement + reuse + backtrack.
 
-    ``backend="torch"`` is the port's one engine; ``device=None`` means the
-    card and raises without one (pass ``device="cpu"`` for the plain
-    PyTorch path).  ``uniforms`` replaces the device Philox streams: an
-    object with the estimator's ``walk(n_root, n_hops, batch)`` and
-    ``source(i)``, the stream of join ``i``'s candidate source (tests replay
-    the reference's JAX keys through it).  ``mesh=`` refines the parameters
-    from walks on every rank of the mesh (the estimator's mesh path); the
-    sampling itself is the same on every rank."""
+    ``backend`` is ``"torch"`` (the card's engine; ``device=None`` means
+    the card and raises without one, ``device="cpu"`` runs the plain
+    PyTorch path), ``"numpy"`` (the host engine) or a
+    :class:`~repro_torch.core.backends.base.Backend` instance.  The
+    estimator follows the backend unless ``estimator=`` names one; a custom
+    backend without an estimator twin falls back to the host estimator
+    with a warning and a ``repro_engine_fallback_total{reason=
+    "estimator_backend"}`` event, as in the reference.  ``uniforms``
+    replaces the device Philox streams: an object with the estimator's
+    ``walk(n_root, n_hops, batch)`` and ``source(i)``, the stream of join
+    ``i``'s candidate source (tests replay the reference's JAX keys
+    through it).  ``mesh=`` refines the parameters from walks on every rank
+    of the mesh (the device estimator's mesh path); the sampling itself is
+    the same on every rank."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], seed: int = 0,
                  phi: int = 2048, rw_batch: int = 256,
                  order: Optional[Sequence[str]] = None,
-                 backend: str = "torch",
+                 backend: str | Backend = "torch",
                  estimator: Optional[str | EstimatorBackend] = None,
                  mesh=None, predicate=None,
-                 plan: str = "static", device=None, uniforms=None):
-        from .backends.torch_backend import TorchBackend
+                 plan: str = "static", device=None, uniforms=None,
+                 join_method: str = "ew"):
         if plan not in ("static", "adaptive"):
             raise ValueError(f"plan must be 'static' or 'adaptive', got {plan!r}")
-        if backend != "torch":
-            raise ValueError(f"unknown backend {backend!r} (repro_torch runs "
-                             "backend='torch' only)")
-        if mesh is not None and estimator not in (None, "torch"):
-            raise ValueError("mesh= needs the device estimator; leave "
-                             "estimator= unset (or 'torch')")
+        if estimator is not None:
+            est_spec = estimator            # explicit; unknown strings raise
+        elif isinstance(backend, str):
+            est_spec = backend              # follow the sampling backend
+        else:
+            est_spec = getattr(backend, "name", "numpy")
+            if est_spec not in ("numpy", "torch"):
+                warnings.warn(
+                    f"OnlineUnionSampler: no estimator backend for custom "
+                    f"sampling backend {est_spec!r}; refinement walks fall "
+                    "back to the host engine (pass estimator= to override)",
+                    stacklevel=2)
+                obs.record_fallback(
+                    "estimator_backend",
+                    detail=f"custom sampling backend {est_spec!r} has no "
+                           "estimator twin; refinement walks use numpy")
+                est_spec = "numpy"
+        if mesh is not None and est_spec != "torch":
+            raise ValueError("mesh= needs the device estimator; use "
+                             "backend='torch' (or estimator='torch')")
         device = mesh_device(mesh, device)
         self.plan = plan
         self.cat = cat
@@ -107,8 +130,10 @@ class OnlineUnionSampler:
         gp = tuple(predicate.preds) if predicate is not None else ()
         self._own_preds = {j.name: tuple(j.reject_preds) + gp
                            for j in self.joins}
-        self.backend = TorchBackend(cat, self.joins, device=device, seed=seed)
-        self.device = self.backend.device
+        # get_backend raises on unknown backend strings (no silent fallback)
+        self.backend = get_backend(backend, cat, self.joins, join_method,
+                                   seed, device)
+        self.device = getattr(self.backend, "device", None)
         self.prober = self.backend.oracle()
         self.attrs = list(self.joins[0].output_attrs)
         self.rng = np.random.default_rng(seed)
@@ -116,12 +141,17 @@ class OnlineUnionSampler:
         self.stats = SamplerStats()
 
         # (2 — built first so (1) can consume its histogram oracle) the
-        # estimator shares the backend's device membership indexes
-        self.estimator = get_estimator(
-            "torch" if estimator is None else estimator, cat, self.joins,
-            seed=seed + 1, batch=rw_batch,
-            members=self.backend.members, device=self.device,
-            uniforms=uniforms, mesh=mesh)
+        # device estimator shares the backend's device membership indexes
+        est_kwargs = {}
+        if est_spec == "torch":
+            members = getattr(self.backend, "members", None)
+            if members is not None:
+                est_kwargs["members"] = members
+            est_kwargs.update(device=self.device or device,
+                              uniforms=uniforms, mesh=mesh)
+        self.estimator = get_estimator(est_spec, cat, self.joins,
+                                       seed=seed + 1, batch=rw_batch,
+                                       **est_kwargs)
 
         # (1) cheap init: HISTOGRAM-BASED parameters (device ops).  §8.3:
         # overlaps of filtered joins are scaled by predicate selectivity
@@ -162,10 +192,8 @@ class OnlineUnionSampler:
         self._refresh_pools()
         self._refresh_size_cache()
 
-        self.sources = {
-            j.name: self.backend.source(
-                j.name, uniforms=None if uniforms is None else uniforms.source(i))
-            for i, j in enumerate(self.joins)}
+        self.sources = dict(zip(
+            self.names, _baseline_sources(self.backend, self.joins, uniforms)))
         self._accepted: List[_Accepted] = []
         self._since_refresh = 0
         self._confident = False
@@ -369,12 +397,12 @@ class OnlineUnionSampler:
         from .join_sampler import EmptyJoinError
         for _ in range(retry_rounds):
             try:
-                rows, draws = self.sources[name].draw(1)
+                rows, draws = self.sources[name].draw(self.rng, 1, batch=32)
             except EmptyJoinError:
                 break
             self.stats.candidate_draws += draws
-            self.stats.residual_rejects += (
-                self.sources[name].pop_residual_rejects())
+            self.stats.residual_rejects += pop_residual_rejects(
+                self.sources[name])
             self._since_refresh += 1
             preds = self._own_preds[name]
             if preds and not bool(pred_mask_np(preds, rows)[0]):
@@ -396,12 +424,12 @@ class OnlineUnionSampler:
         out: Optional[Rows] = None
         for _ in range(retry_rounds):
             try:
-                rows, draws = self.sources[name].draw(k)
+                rows, draws = self.sources[name].draw(self.rng, k, batch=32)
             except EmptyJoinError:
                 break
             self.stats.candidate_draws += draws
-            self.stats.residual_rejects += (
-                self.sources[name].pop_residual_rejects())
+            self.stats.residual_rejects += pop_residual_rejects(
+                self.sources[name])
             self._since_refresh += 1
             nb = next(iter(rows.values())).shape[0]
             pm = (pred_mask_np(preds, rows) if preds

@@ -1,10 +1,10 @@
 """Mesh-sharded Algorithm-1 rounds on ``torch.distributed``.
 
-Port of ``repro.core.sharding.sampler`` (its ``fused_rounds="host"`` twin).
-:class:`ShardedUnionSampler` runs the unsharded engine's host-driven loop
-(:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler` with
-``fused_rounds="host"``: one sync per round) over a round that spans every
-rank of the mesh; ``fused_rounds="device"`` raises.  One round, on each rank:
+Port of ``repro.core.sharding.sampler``.  :class:`ShardedUnionSampler`
+runs Algorithm-1 rounds that span every rank of the mesh, in either of the
+unsharded engine's loops
+(:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler`).
+One round, on each rank:
 
 1. **replicated cover selection** — every rank takes the same per-slot
    picks from a stream seeded the same on every rank and histograms them
@@ -23,12 +23,33 @@ rank of the mesh; ``fused_rounds="device"`` raises.  One round, on each rank:
    owner verdicts and hands each rank its own candidates' segment;
 5. **containment** by the earlier pieces' own ``reject_preds``
    (``_cont_pred_fns``): the exchange probes raw relation fingerprints;
-6. **local compaction** of the accepted rows;
-7. **one all-gather** of the accepted matrices and counts, so every rank
-   holds the same global shard-major matrices.  The inherited host loop
-   (selection carry, global surplus banking, dead pieces, adaptive EMAs,
-   final shuffle) then runs the same on every rank, and every rank's
-   ``sample(n)`` returns the same global ``SampleSet``.
+6. **local compaction** of the accepted rows.
+
+Then the two loops part:
+
+* ``fused_rounds="device"`` (the default, the reference's per-shard device
+  loop): each rank keeps its own FIFO banks of ``surplus_cap // world``
+  rows per piece; only the small carry (shortfall, dead flags, streaks,
+  under ``plan="adaptive"`` the EMAs and the global bank occupancy) is
+  replicated.  One ``all_gather_into_tensor`` of every rank's ``(5, nj)``
+  stack of bank count, accepted, ok, residual and predicate-reject counts
+  lets every rank compute the same shard-major water filling (bank take,
+  then fresh take, rank ``s``'s slice of each) and its own rows' global
+  output positions, with no further collective; each rank scatters its
+  rows there in an output of its own, and one ``all_reduce(SUM)`` merges
+  the disjoint outputs at the fetch.  The round is the unsharded engine's
+  gated step over static buffers: at world 1 (no collective) it is
+  captured as one CUDA graph per capacity class on the card and replayed in
+  chunks; at world > 1 it runs eagerly in chunks of ``K`` rounds, ``K``
+  taken from the replicated ``total`` and ``rounds`` only, so every rank
+  issues the same collectives; one host sync per chunk either way.
+* ``fused_rounds="host"``: **one all-gather** of the accepted matrices and
+  counts per round, so every rank holds the same global shard-major
+  matrices, and the inherited host loop (global surplus banking, one sync
+  per round) runs the same on every rank.
+
+Either way every rank's ``sample(n)`` returns the same global
+``SampleSet``.
 
 ``round_batch`` is per rank; the global round is ``world`` times it.
 
@@ -42,9 +63,9 @@ rank ``r``'s draws from a Philox stream seeded
 Exactness: every rank's candidates are i.i.d. uniform over the whole join,
 so their cover-accepted subsequences are i.i.d. uniform over the piece and
 exchangeable across ranks, and the shard-major consumption order is
-unbiased.  The reference's per-shard device loop with per-shard FIFO banks
-is not ported: the port has one (host-driven) loop, whose banking is
-global.
+unbiased.  At world 1 both loops equal the unsharded engine bit for bit; at
+world > 1 they differ once banks fill (per-rank FIFO banks against one
+global bank), both unbiased, as in the reference.
 """
 
 from __future__ import annotations
@@ -56,6 +77,8 @@ import torch
 
 from .. import planner
 from ..backends.torch_backend import (PhiloxUniforms, TorchUnionSampler,
+                                      _CallBuffers, _cover_cum,
+                                      _emit_and_bank, _LoopState,
                                       _piece_batches, fp32)
 from ..predicates import compile_preds_torch
 from .catalog import DRAW_STREAM, ShardedCatalog, rank_stream_seed
@@ -78,6 +101,8 @@ def _window_probe(s1: torch.Tensor, s2: torch.Tensor, n_own: int,
 class ShardedUnionSampler(TorchUnionSampler):
     """Algorithm-1 rounds over the ranks of a :class:`SamplerMesh`.
 
+    ``fused_rounds`` picks the loop (module docstring): ``"device"`` (the
+    reference's default) with per-rank banks, ``"host"`` with a global bank.
     ``round_batch`` is the *per-rank* selection-slot budget; per-join draw
     widths are cover-balanced per rank (``shard_piece_batches``), and the
     global schedule (``piece_batches``, read by the stats accounting and
@@ -87,14 +112,9 @@ class ShardedUnionSampler(TorchUnionSampler):
     def __init__(self, scat: ShardedCatalog, cover, seed: int = 0,
                  round_batch: int = 4096, dead_rounds: int = 8,
                  max_rounds: int = 4096, surplus_cap: Optional[int] = None,
-                 stats=None, fused_rounds: str = "host",
+                 stats=None, fused_rounds: str = "device",
                  balance: str = "cover", balance_slack: float = 1.5,
                  uniforms=None, predicate=None, plan: str = "static"):
-        if fused_rounds == "device":
-            raise ValueError(
-                "fused_rounds='device' with mesh=: the reference's per-shard "
-                "device loop (collectives inside the round program) is not "
-                "ported yet; the sharded engine runs fused_rounds='host'")
         self.scat = scat
         self.mesh = scat.mesh
         self.world, self.rank = scat.world, scat.mesh.rank
@@ -133,6 +153,23 @@ class ShardedUnionSampler(TorchUnionSampler):
 
     # -- one round -------------------------------------------------------------
     def _round_core(self, probs_cum, owed, extra, ema=None, bank_count=None):
+        """The host loop's round: this rank's round, then one all-gather of
+        the compacted matrices and counts (world > 1)."""
+        mats, counts, need, budget = self._local_round(
+            probs_cum, owed, extra, ema, bank_count)
+        if self.world > 1:
+            mats, counts = self._gather_round(mats, counts)
+        return (mats, counts[0], counts[1], counts[2], counts[3], need,
+                budget)
+
+    def _local_round(self, probs_cum, owed, extra, ema=None,
+                     bank_count=None):
+        """Selection, this rank's draws, predicates, the fingerprint
+        exchange and compaction.  Returns this rank's compacted
+        ``(B_j, A+1)`` matrices, its ``(4, nj)`` (walk_ok, residual,
+        accepted, predicate-reject) counts, the replicated per-piece need
+        and (adaptive plan, else None) the replicated global budget;
+        ``bank_count`` is the global bank occupancy the budget reads."""
         nj = len(self.trees)
         dev = self.device
         world = self.world
@@ -201,12 +238,161 @@ class ShardedUnionSampler(TorchUnionSampler):
             accc.append(acc.sum())
         counts = torch.stack([torch.stack(okc), torch.stack(resc),
                               torch.stack(accc), torch.stack(predc)])
-        if world == 1:
-            cols = mats
-        else:
-            cols, counts = self._gather_round(mats, counts)
-        return (cols, counts[0], counts[1], counts[2], counts[3], need,
-                budget)
+        return mats, counts, need, budget
+
+    # -- the per-rank device loop (fused_rounds="device") ----------------------
+    def _bank_cap(self) -> int:
+        # device mode: the reference's per-shard banks of surplus_cap // world
+        if self.fused_rounds == "device":
+            return max(1, self.surplus_cap // self.world)
+        return self.surplus_cap
+
+    def _init_state(self) -> _LoopState:
+        st = super()._init_state()
+        if self.plan == "adaptive":
+            st.gcount = torch.zeros_like(st.count)
+        return st
+
+    def _round_step(self, cb: _CallBuffers) -> None:
+        if self.fused_rounds == "host":
+            return super()._round_step(cb)
+        return self._shard_step(cb)
+
+    def _gather_counts(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``(5, nj)`` count stack as ``(world, 5, nj)``."""
+        if self.world == 1:
+            return local[None]
+        import torch.distributed as dist
+        g = torch.empty(self.world * local.numel(), dtype=local.dtype,
+                        device=local.device)
+        dist.all_gather_into_tensor(g, local.reshape(-1),
+                                    group=self.mesh.group)
+        return g.view(self.world, *local.shape)
+
+    def _shard_step(self, cb: _CallBuffers) -> None:
+        """One round of the per-rank device loop on the static buffers.
+
+        The unsharded engine's gated step (``TorchUnionSampler._round_step``:
+        every write gated by the replicated ``active``) with the
+        reference's shard-major water filling
+        (``repro.core.sharding.sampler._build_loop``): from the gathered
+        counts every rank computes the same global bank and fresh takes,
+        its own slice of each, and the global positions of its rows."""
+        st = self._state
+        cap = self._bank_cap()
+        adaptive = self.plan == "adaptive"
+        zero = self._zero
+        r = self.rank
+        active = ((cb.total < cb.n) & (cb.rounds < self.max_rounds)
+                  & (cb.fail == 0))
+        probs_cum, bad = _cover_cum(self._probs_base, st.dead)
+        extra = torch.where(active, torch.clamp(
+            cb.n - cb.total - st.owed.sum(), 0, self._slot_width), zero)
+        mats, counts, need, budget = self._local_round(
+            probs_cum, st.owed, extra, st.ema, st.gcount)
+        need = torch.where(active, need, zero)
+        okc, resc, accc, predc = counts
+        # one tiny exchange: (bank count, accepted, ok, residual,
+        # predicate-reject) of every rank
+        gat = self._gather_counts(torch.stack(
+            [st.count, accc, okc, resc, predc]).to(torch.int64))
+        counts_w = gat[:, 0]                                # (world, nj)
+        acc_w = torch.where(active, gat[:, 1], zero)
+        acc_v, ok_v, res_v, pred_v = (gat[:, i].sum(0) for i in range(1, 5))
+        accg = acc_w.sum(0)
+        # bank take (FIFO, capped) → fresh take → carried shortfall
+        dtg = torch.clamp(torch.minimum(need, counts_w.sum(0)),
+                          max=self._drain_w)
+        ftg = torch.minimum(need - dtg, accg)
+        # shard-major water filling: rank s serves the slice of the global
+        # take that lands in its segment of the prefix sums
+        dt_w = torch.minimum(torch.clamp(
+            dtg[None] - (torch.cumsum(counts_w, 0) - counts_w), min=0),
+            counts_w)
+        ft_w = torch.minimum(torch.clamp(
+            ftg[None] - (torch.cumsum(acc_w, 0) - acc_w), min=0), acc_w)
+        takeg = dtg + ftg
+        seg = cb.total + torch.cumsum(takeg, 0) - takeg
+        bank_base = seg + (torch.cumsum(dt_w, 0) - dt_w)[r]
+        fresh_base = seg + dtg + (torch.cumsum(ft_w, 0) - ft_w)[r]
+        _, head, count = _emit_and_bank(
+            cb.out, cb.total, st.bank, st.head, st.count, mats, dt_w[r],
+            ft_w[r], acc_w[r], cap, cb.C, min(self._drain_w, cap),
+            bank_base=bank_base, fresh_base=fresh_base)
+        # global post-round bank occupancy for the dead-piece rules
+        push_w = torch.minimum(acc_w - ft_w, cap - (counts_w - dt_w))
+        countg = (counts_w - dt_w + push_w).sum(0)
+        shortfall = need - dtg - ftg
+        dropped = torch.where(st.dead, shortfall, zero).sum()
+        shortfall = torch.where(st.dead, zero, shortfall)
+        trig = (shortfall > 0) & (accg == 0) & (countg == 0)
+        streak = torch.where(st.dead, st.streak,
+                             torch.where(trig, st.streak + 1, zero))
+        newly = ~st.dead & (streak >= self.dead_rounds) & active
+        dropped = dropped + torch.where(newly, shortfall, zero).sum()
+        shortfall = torch.where(newly, zero, shortfall)
+        drawn = (budget.sum() if adaptive
+                 else zero + int(sum(self.piece_batches)))
+        cb.stats.add_(torch.where(active, torch.stack([
+            drawn, drawn, ok_v.sum() - res_v.sum() - pred_v.sum()
+            - acc_v.sum(), res_v.sum(), pred_v.sum(), dropped]), zero))
+        ps = cb.pstats
+        cb.pstats.copy_(torch.where(active, torch.stack([
+            ps[:, 0] + (budget if adaptive else self._pbatch),
+            ps[:, 1] + acc_v, ps[:, 2] + res_v, ps[:, 3] + dtg,
+            torch.maximum(ps[:, 4], countg)], dim=1), ps))
+        if adaptive:
+            # the EMA step from the gathered global counts (no collective);
+            # the post-round global occupancy is next round's budget input
+            counts4 = torch.stack([acc_v, ok_v, res_v, pred_v],
+                                  dim=1).to(torch.int32)
+            st.ema.copy_(torch.where(active, planner.ema_update(
+                st.ema, budget, counts4, self._ema_shifts, planner.TORCH_XP),
+                st.ema))
+            st.gcount.copy_(countg)
+        st.owed.copy_(torch.where(active, shortfall, st.owed))
+        st.dead.logical_or_(newly)
+        st.streak.copy_(torch.where(active, streak, st.streak))
+        st.head.copy_(head)
+        st.count.copy_(count)
+        cb.total.add_(takeg.sum())
+        cb.fail.logical_or_(bad & active)
+        cb.rounds.add_(active.to(torch.int64))
+
+    def _graphs(self) -> bool:
+        # world > 1: the step's collectives are not captured (NCCL capture
+        # is untried); the step runs eagerly in chunks
+        return super()._graphs() and self.world == 1
+
+    def _loop_device(self, cb: _CallBuffers, n: int):
+        if self.world > 1:
+            cb.out.zero_()          # the ranks' outputs merge by summation
+        return super()._loop_device(cb, n)
+
+    def _call_rows(self, cb: _CallBuffers, n: int) -> torch.Tensor:
+        if self.fused_rounds == "host" or self.world == 1:
+            return cb.out[:n]
+        import torch.distributed as dist
+        rows = cb.out[:n].clone()
+        dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        return rows
+
+    def _round_shapes(self) -> List[Tuple[int, int]]:
+        return [(t.n_streams, b)
+                for t, b in zip(self.trees, self.shard_piece_batches)]
+
+    def _mark_uniforms(self):
+        if self.world == 1:
+            return self.uniforms.mark()
+        return self.uniforms.mark(), self.shard_uniforms.mark()
+
+    def _rewind_uniforms(self, mark, rounds: int) -> None:
+        if self.world == 1:
+            return super()._rewind_uniforms(mark, rounds)
+        # a round draws the selection slots from the shared stream and the
+        # candidates from this rank's own
+        self.uniforms.rewind(mark[0], rounds, self._slot_width, [])
+        self.shard_uniforms.rewind(mark[1], rounds, 0, self._round_shapes())
 
     def _exchange_probes(self, rows_j) -> List[torch.Tensor]:
         """All earlier-piece membership probes of the round, one verdict

@@ -1,6 +1,6 @@
-"""§3: the union sampling framework on the card (Algorithm 1 + baselines).
+"""§3: the union sampling framework (Algorithm 1 + baselines).
 
-Port of ``repro.core.union_sampler`` for the device engine:
+Port of ``repro.core.union_sampler``:
 
 * :class:`DisjointUnionSampler` — Definition 1: pick ``J_j ∝ |J_j|``,
   sample uniformly inside, emit.  No rejection.
@@ -9,38 +9,37 @@ Port of ``repro.core.union_sampler`` for the device engine:
   kept only when the join is the *canonical first* join containing the
   tuple (one membership probe per earlier join through the backend's
   oracle).
+* :class:`SetUnionSampler` — Algorithm 1: joins are selected with
+  ``P = |J'_j|/|U|`` from a :class:`~repro_torch.core.cover.Cover` and,
+  inside the selected join, candidates are drawn until one lands in the
+  cover piece ``J'_j``, which makes every emitted sample uniform over the
+  union.  ``strict_paper_loop=True`` reproduces the paper's printed
+  pseudocode (re-select a join after every rejection; DESIGN.md §7).
 
-Both take their candidates from the backend's per-join
-:class:`~repro_torch.core.backends.torch_backend.TorchCandidateSource` and
-their picks, permutation and fire matrix from the reference's
-``numpy.random.default_rng(seed)``.
+Two engines.  ``backend="torch"`` (the default: the card, or the CPU with
+``device="cpu"``) runs whole Algorithm-1 rounds on the device
+(:class:`~repro_torch.core.backends.torch_backend.TorchUnionSampler`, or
+:class:`~repro_torch.core.backends.torch_backend.TorchRecordUnionSampler`
+for ``membership="record"``); ``mesh=`` lifts them onto the sharded engine
+(:class:`~repro_torch.core.sharding.ShardedUnionSampler`).  ``backend=
+"numpy"`` (the reference's default) is the host engine
+(:class:`~repro_torch.core.backends.numpy_backend.NumpyBackend`), and runs
+the reference's host loops: exact batched probes, or the sequential loop for
+record mode and ``strict_paper_loop``.  The baselines draw through the
+backend's per-join candidate sources and probe through its oracle, with the
+reference's ``numpy.random.default_rng(seed)`` for picks and permutations.
 
-:class:`SetUnionSampler` selects joins with ``P = |J'_j|/|U|`` from a
-:class:`~repro_torch.core.cover.Cover` and, inside the selected join, draws
-until the candidate lands in the cover piece ``J'_j``, which makes every
-emitted sample uniform over the union.  Two cover-membership modes:
-
-- ``membership="probe"`` — exact batched membership probes against the
-  earlier joins (:class:`~repro_torch.core.backends.torch_backend.
-  TorchUnionSampler`), with ``plan="static"`` or ``plan="adaptive"``;
-- ``membership="record"`` — the paper's lazy ``orig_join`` record with
-  revision (:class:`~repro_torch.core.backends.torch_backend.
-  TorchRecordUnionSampler`), ``plan="static"`` only.
-
-§8.3 predicates run in the round: ``pushdown()`` provenance becomes
-build-time validity masks, rejection predicates (union-wide ``predicate=``
-or per-join ``JoinSpec.reject_preds``) in-round acceptance masks.  The port
-has no host engine: predicates that cannot lower to the device raise.
-
-``mesh=`` (a :func:`~repro_torch.core.sharding.make_sampler_mesh` mesh)
-runs the rounds on the sharded engine
-(:class:`~repro_torch.core.sharding.ShardedUnionSampler`: per-rank draws,
-hash-partitioned membership, one fingerprint exchange per round); a world
-of one reproduces the unsharded engine bit for bit.
+A device backend degrades to the host loops where the reference's does, each
+time with a ``repro_engine_fallback_total{reason=...}`` event
+(``repro_torch.obs.record_fallback``): ``strict_paper_loop``
+(``"strict_paper_loop"``), a §8.3 predicate that does not lower to the
+device (``"predicate_unsupported"``), and a backend whose fused rounds are
+off because a join left the int32 domain (``TorchBackend.degraded``).  On
+a mesh each of these raises instead.  A missing card, a failed kernel build
+or launch and a failed graph capture raise; nothing degrades for them.
 
 ``SampleSet.rows``, ``home`` and ``fingerprint`` are host numpy arrays
-(int64 and uint64) after the one device→host copy per ``sample(n)``, as in
-the reference.
+(int64 and uint64), as in the reference.
 """
 
 from __future__ import annotations
@@ -51,9 +50,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..device import mesh_device
+from .backends import Backend, get_backend
 from .cover import Cover
 from .index import Catalog
 from .joins import JoinSpec
+from .membership import rows_concat, rows_length, rows_subset
 from .relation import fingerprint128
 
 Rows = Dict[str, np.ndarray]
@@ -111,55 +112,61 @@ class SampleSet:
         return np.stack([self.rows[a] for a in self.attrs], axis=1)
 
 
+def _fp_to_int(fp_row: np.ndarray) -> int:
+    return (int(fp_row[0]) << 64) | int(fp_row[1])
+
+
+def pop_residual_rejects(source) -> int:
+    """Drain a candidate source's §8.2 residual-rejection counter (0 when the
+    source has none)."""
+    pop = getattr(source, "pop_residual_rejects", None)
+    return int(pop()) if pop is not None else 0
+
+
 def empty_sample_set(attrs: Sequence[str], stats: SamplerStats) -> SampleSet:
     rows = {a: np.zeros(0, dtype=np.int64) for a in attrs}
     fp = fingerprint128([rows[a] for a in sorted(attrs)])
     return SampleSet(list(attrs), rows, np.zeros(0, dtype=np.int64), fp, stats)
 
 
-def _concat(parts: List[Rows], attrs: Sequence[str]) -> Rows:
-    return {a: np.concatenate([p[a] for p in parts]) for a in attrs}
+class ReadySample:
+    """Resolved async-sample handle (host engines compute eagerly)."""
 
+    def __init__(self, ss: SampleSet):
+        self._ss = ss
 
-def get_backend(backend, cat: Catalog, joins: Sequence[JoinSpec], device,
-                seed: int = 0):
-    """``"torch"`` builds a :class:`~repro_torch.core.backends.
-    torch_backend.TorchBackend` on ``device``; a ``TorchBackend`` instance
-    is used as it is (its device and source seeds hold), as the reference's
-    ``get_backend`` does with a ``Backend``."""
-    from .backends.torch_backend import TorchBackend
-    if isinstance(backend, TorchBackend):
-        return backend
-    if backend != "torch":
-        raise ValueError(f"repro_torch runs backend='torch' only, got "
-                         f"{backend!r}")
-    return TorchBackend(cat, joins, device=device, seed=seed)
+    def result(self) -> SampleSet:
+        return self._ss
 
 
 def _baseline_sources(backend, joins: Sequence[JoinSpec], uniforms):
-    """A baseline sampler's per-join candidate sources: join ``i``'s Philox
-    stream is seeded ``backend.seed + i``, or ``uniforms.source(i)``
-    replaces it."""
-    return [backend.source(j.name, uniforms=None if uniforms is None
-                           else uniforms.source(i))
+    """A baseline sampler's per-join candidate sources.  On a
+    ``TorchBackend`` join ``i``'s Philox stream is seeded ``backend.seed +
+    i``, or ``uniforms.source(i)`` replaces it."""
+    if uniforms is None:
+        return [backend.source(j.name) for j in joins]
+    return [backend.source(j.name, uniforms=uniforms.source(i))
             for i, j in enumerate(joins)]
 
 
 class DisjointUnionSampler:
     """Definition 1 — sampling the disjoint union ⨄ J_j.
 
-    ``backend="torch"`` (or a ``TorchBackend``, see :func:`get_backend`)
-    is the port's one engine; ``device=None`` means the card and raises
-    without one.  ``uniforms`` replaces the sources' Philox streams: an
+    ``backend`` is ``"torch"`` (on ``device``: ``None`` means the card and
+    raises without one), ``"numpy"`` (the host engine) or a
+    :class:`~repro_torch.core.backends.base.Backend` instance, used as it
+    is.  ``uniforms`` replaces a ``TorchBackend``'s source streams: an
     object whose ``source(i)`` is join ``i``'s stream."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec],
                  join_sizes: Dict[str, float], seed: int = 0,
-                 backend="torch", device=None, uniforms=None):
+                 backend: str | Backend = "torch", device=None,
+                 uniforms=None, join_method: str = "ew"):
         self.joins = list(joins)
-        self.backend = get_backend(backend, cat, self.joins, device, seed)
+        self.backend = get_backend(backend, cat, self.joins, join_method,
+                                   seed, device)
         self.sources = _baseline_sources(self.backend, self.joins, uniforms)
-        self.device = self.backend.device
+        self.device = getattr(self.backend, "device", None)
         sizes = np.array([max(join_sizes[j.name], 0.0) for j in self.joins])
         total = sizes.sum()
         if not np.isfinite(total) or total <= 0:
@@ -182,12 +189,12 @@ class DisjointUnionSampler:
             c = int((picks == j).sum())
             if c == 0:
                 continue
-            rows, draws = self.sources[j].draw(c)
+            rows, draws = self.sources[j].draw(self.rng, c, batch=1024)
             self.stats.candidate_draws += draws
-            self.stats.residual_rejects += self.sources[j].pop_residual_rejects()
+            self.stats.residual_rejects += pop_residual_rejects(self.sources[j])
             parts.append(rows)
             homes.append(np.full(c, j, dtype=np.int64))
-        rows = _concat(parts, self.attrs)
+        rows = rows_concat(parts)
         home = np.concatenate(homes)
         perm = self.rng.permutation(n)
         rows = {a: c[perm] for a, c in rows.items()}
@@ -201,19 +208,21 @@ class BernoulliUnionSampler:
     """§3 union-trick baseline (canonical first-join acceptance).
 
     The canonical test probes each fired join's candidates against every
-    earlier join through the backend's membership oracle: ``nj(nj-1)/2``
-    host→device→host probes per round, as in the reference.  Arguments as
-    for :class:`DisjointUnionSampler`, plus the union size."""
+    earlier join through the backend's membership oracle (on a
+    ``TorchBackend``: ``nj(nj-1)/2`` host→device→host probes per round, as
+    in the reference).  Arguments as for :class:`DisjointUnionSampler`, plus
+    the union size."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec],
                  join_sizes: Dict[str, float], union_size: float,
-                 seed: int = 0, backend="torch", device=None,
-                 uniforms=None):
+                 seed: int = 0, backend: str | Backend = "torch",
+                 device=None, uniforms=None, join_method: str = "ew"):
         self.cat = cat
         self.joins = list(joins)
-        self.backend = get_backend(backend, cat, self.joins, device, seed)
+        self.backend = get_backend(backend, cat, self.joins, join_method,
+                                   seed, device)
         self.sources = _baseline_sources(self.backend, self.joins, uniforms)
-        self.device = self.backend.device
+        self.device = getattr(self.backend, "device", None)
         self.prober = self.backend.oracle()
         self.sizes = np.array([max(join_sizes[j.name], 1e-12)
                                for j in self.joins])
@@ -241,10 +250,10 @@ class BernoulliUnionSampler:
                 c = int(fires[:, j].sum())
                 if c == 0:
                     continue
-                rows, draws = self.sources[j].draw(c)
+                rows, draws = self.sources[j].draw(self.rng, c, batch=1024)
                 self.stats.candidate_draws += draws
-                self.stats.residual_rejects += \
-                    self.sources[j].pop_residual_rejects()
+                self.stats.residual_rejects += pop_residual_rejects(
+                    self.sources[j])
                 # canonical acceptance: no earlier-indexed join contains it
                 keep = np.ones(c, dtype=bool)
                 for i in range(j):
@@ -252,12 +261,12 @@ class BernoulliUnionSampler:
                 self.stats.canonical_rejects += int((~keep).sum())
                 kidx = np.nonzero(keep)[0]
                 if kidx.shape[0]:
-                    acc_rows.append({a: v[kidx] for a, v in rows.items()})
+                    acc_rows.append(rows_subset(rows, kidx))
                     acc_home.extend([j] * kidx.shape[0])
                     count += kidx.shape[0]
         if count < n:
             raise RuntimeError("BernoulliUnionSampler: round budget exhausted")
-        rows = {a: c[:n] for a, c in _concat(acc_rows, self.attrs).items()}
+        rows = {a: c[:n] for a, c in rows_concat(acc_rows).items()}
         home = np.asarray(acc_home[:n], dtype=np.int64)
         fp = fingerprint128([rows[a] for a in sorted(self.attrs)])
         self.stats.samples_emitted += n
@@ -267,35 +276,45 @@ class BernoulliUnionSampler:
 class SetUnionSampler:
     """Algorithm 1 — non-Bernoulli cover-based set-union sampling.
 
-    ``backend="torch"`` (or a ``TorchBackend``, see :func:`get_backend`)
-    is the only engine of the port; ``device=None``
-    means the card and raises without one (pass ``device="cpu"`` for the
-    plain PyTorch path).  ``round_batch=None`` consults the port's
+    ``backend`` is ``"torch"`` (the default; ``device=None`` means the card
+    and raises without one, ``device="cpu"`` runs the plain PyTorch path),
+    ``"numpy"`` (the host engine) or a ``Backend`` instance, used as it is.
+    On a backend with fused rounds the rounds run on the device engine; the
+    host loops run otherwise, and where the module docstring's degrade
+    cases apply.
+
+    Device engine: ``round_batch=None`` consults the port's
     ``planner.PLAN_CACHE`` (fed by this process's timed calls) and falls
     back to 4096 while it is cold.  ``uniforms`` replaces the device Philox
     stream (tests replay the reference's uniforms through it).  ``mesh=``
     runs the sharded engine on the mesh's rank and device (``round_batch``
     is then per rank); ``device`` must then be left out or name the mesh's
-    device type.
-
-    ``fused_rounds`` picks the round loop: ``"device"`` (the default
-    without ``mesh=``) captures one round as a CUDA graph per capacity class
-    and replays it with one host sync per chunk of rounds; ``"host"`` (the
-    default with ``mesh=``, and its only mode: ``"device"`` there raises)
-    syncs after every round.  Record mode is host-driven in either mode.
+    device type.  ``fused_rounds`` picks the round loop: ``"device"`` (the
+    default, with or without ``mesh=``) replays one CUDA graph of a round per
+    capacity class on the card (at world 1; at world > 1 the round runs
+    eagerly) with one host sync per chunk of rounds; ``"host"`` syncs after
+    every round.  Record mode is host-driven in either mode.
     ``dead_rounds``, ``max_rounds``, ``balance`` and ``balance_slack`` are
-    the reference engine's, with its defaults."""
+    the reference engine's, with its defaults.
+
+    Host loops: ``join_method`` (``"ew"``, ``"eo"``; the numpy backend
+    only: the device backend records ``"join_method"`` and raises),
+    ``retry_rounds`` (draw attempts per piece before it is dropped) and
+    ``candidate_batch`` (candidates drawn per missing row) are the
+    reference's, with its defaults; they draw from
+    ``numpy.random.default_rng(seed)`` as the reference does."""
 
     def __init__(self, cat: Catalog, joins: Sequence[JoinSpec], cover: Cover,
-                 seed: int = 0, backend="torch", device=None,
-                 round_batch: Optional[int] = 4096, uniforms=None,
-                 membership: str = "probe", predicate=None,
+                 seed: int = 0, backend: str | Backend = "torch",
+                 device=None, round_batch: Optional[int] = 4096,
+                 uniforms=None, membership: str = "probe", predicate=None,
                  plan: str = "static", mesh=None,
                  fused_rounds: Optional[str] = None, dead_rounds: int = 8,
                  max_rounds: int = 4096, balance: str = "cover",
-                 balance_slack: float = 1.5):
-        from .backends.torch_backend import (TorchRecordUnionSampler,
-                                             TorchUnionSampler)
+                 balance_slack: float = 1.5, join_method: str = "ew",
+                 strict_paper_loop: bool = False, retry_rounds: int = 64,
+                 candidate_batch: int = 32):
+        from .. import obs
         if membership not in ("probe", "record"):
             raise ValueError("membership must be 'probe' or 'record'")
         if plan not in ("static", "adaptive"):
@@ -309,27 +328,67 @@ class SetUnionSampler:
         device = mesh_device(mesh, device)
         self.cat = cat
         self.joins = list(joins)
+        self.by_name = {j.name: j for j in self.joins}
         self.cover = cover
         self.order = list(cover.order)
         self.attrs = list(self.joins[0].output_attrs)
         self.membership = membership
+        self.strict_paper_loop = strict_paper_loop
         self.plan = plan
         self.predicate = predicate
-        # §8.3 rejection predicates must lower to in-round masks: the
-        # reference degrades the union to its host engine otherwise; the
-        # port has none and refuses
-        from .predicates import device_lower_reason
-        for j in self.joins:
-            preds = list(j.reject_preds)
-            if predicate is not None:
-                preds += list(predicate.preds)
-            reason = device_lower_reason(preds, j.output_attrs)
+        self.retry_rounds = retry_rounds
+        self.candidate_batch = candidate_batch
+        self.rng = np.random.default_rng(seed)
+        self.stats = SamplerStats()
+        # record mode state of the host loop: fingerprint -> home order-index
+        self._record: Dict[int, int] = {}
+        self._prober = None
+        self.backend = get_backend(backend, cat, self.joins, join_method,
+                                   seed, device)
+        self.device = getattr(self.backend, "device", None)
+        fused = self.backend.supports_fused_rounds()
+        if mesh is not None and not fused:
+            raise ValueError("mesh= requires a fused-round backend; use "
+                             "backend='torch' (and no join out of the int32 "
+                             "domain)")
+        if fused and strict_paper_loop:
+            # host-only ablation (re-selects a join after every rejection:
+            # sequential); degrade rather than refuse
+            if mesh is not None:
+                raise ValueError("strict_paper_loop is a host-only ablation; "
+                                 "it cannot run on a mesh")
+            obs.record_fallback("strict_paper_loop",
+                                detail="host-only ablation loop")
+            fused = False
+        if fused and (predicate is not None
+                      or any(j.reject_preds for j in self.joins)):
+            # §8.3 rejection predicates lower to in-round masks when the
+            # comparisons are device-supported; otherwise the whole union
+            # degrades to the host loop
+            from .predicates import device_lower_reason
+            reason = None
+            for j in self.joins:
+                preds = list(j.reject_preds)
+                if predicate is not None:
+                    preds += list(predicate.preds)
+                reason = device_lower_reason(preds, j.output_attrs)
+                if reason is not None:
+                    break
             if reason is not None:
-                raise ValueError(
-                    f"predicate not device-lowerable ({reason}) in join "
-                    f"{j.name!r}; the port has no host engine to run it")
-        # round_batch=None: the autotuning cost model, 4096 while cold
+                if mesh is not None:
+                    raise ValueError(
+                        f"predicate not device-lowerable ({reason}); drop "
+                        "mesh= to fall back to the host engine")
+                obs.record_fallback("predicate_unsupported", detail=reason,
+                                    join=j.name)
+                fused = False
+        self.engine = None
         self.autotuned_plan = None
+        if not fused:
+            self.sources = {j.name: self.backend.source(j.name)
+                            for j in self.joins}
+            return
+        # round_batch=None: the autotuning cost model, 4096 while cold
         surplus_cap = None
         if round_batch is None:
             from . import planner
@@ -340,9 +399,6 @@ class SetUnionSampler:
                 surplus_cap = self.autotuned_plan.surplus_cap
             else:
                 round_batch = 4096
-        self.backend = get_backend(backend, cat, self.joins, device)
-        self.device = self.backend.device
-        self.stats = SamplerStats()
         kw = dict(seed=seed, round_batch=round_batch, stats=self.stats,
                   uniforms=uniforms, predicate=predicate, plan=plan,
                   surplus_cap=surplus_cap, dead_rounds=dead_rounds,
@@ -356,20 +412,199 @@ class SetUnionSampler:
                                   backend=self.backend)
             self.engine = ShardedUnionSampler(scat, cover, **kw)
             return
+        from .backends.torch_backend import (TorchRecordUnionSampler,
+                                             TorchUnionSampler)
         engine = (TorchRecordUnionSampler if membership == "record"
                   else TorchUnionSampler)
         self.engine = engine(self.backend, cover, **kw)
 
+    # ------------------------------------------------------------------ util
     @property
     def prober(self):
-        return self.backend.oracle()
+        if self._prober is None:
+            self._prober = self.backend.oracle()
+        return self._prober
 
+    def _selection_probs(self) -> np.ndarray:
+        p = np.asarray(self.cover.selection_probs(), dtype=np.float64)
+        p = np.maximum(p, 0)
+        s = p.sum()
+        return p / s if s > 0 else np.full(len(p), 1.0 / len(p))
+
+    def _uniform_candidates(self, name: str, count: int) -> Optional[Rows]:
+        from .join_sampler import EmptyJoinError
+        try:
+            rows, draws = self.sources[name].draw(self.rng, count,
+                                                  batch=max(count, 64))
+        except EmptyJoinError:
+            # the estimate gave a positive piece size to an empty join —
+            # treat the slots as dropped
+            return None
+        self.stats.candidate_draws += draws
+        self.stats.residual_rejects += pop_residual_rejects(self.sources[name])
+        return rows
+
+    def _cover_accept_probe(self, oidx: int, rows: Rows) -> np.ndarray:
+        """accept iff no earlier join in cover order contains the tuple."""
+        keep = np.ones(rows_length(rows), dtype=bool)
+        for i in range(oidx):
+            if not keep.any():
+                break
+            keep &= ~self.prober.contains(self.order[i], rows)
+        return keep
+
+    def _pred_ok(self, name: str, rows: Rows) -> Optional[np.ndarray]:
+        """§8.3 own-join predicate mask (per-join ``reject_preds`` AND the
+        union-wide ``predicate=``), or ``None`` when there is none."""
+        from .predicates import pred_mask_np
+        spec = self.by_name[name]
+        mask = None
+        if spec.reject_preds:
+            mask = pred_mask_np(spec.reject_preds, rows)
+        if self.predicate is not None:
+            m = self.predicate.accept(rows)
+            mask = m if mask is None else mask & m
+        return mask
+
+    # --------------------------------------------------------------- sampling
     def sample(self, n: int) -> SampleSet:
         if n <= 0:
             return empty_sample_set(self.attrs, self.stats)
-        return self.engine.sample(n)
+        if self.engine is not None:
+            return self.engine.sample(n)
+        if self.membership == "probe" and not self.strict_paper_loop:
+            return self._sample_probe(n)
+        return self._sample_sequential(n)
 
     def sample_async(self, n: int):
         """Run ``sample(n)``'s rounds; ``result()`` on the returned handle
-        does the device→host fetch."""
-        return self.engine.sample_async(n)
+        does the device→host fetch (host loops return a resolved handle)."""
+        if self.engine is not None:
+            return self.engine.sample_async(n)
+        return ReadySample(self.sample(n))
+
+    # -- exact mode: batched, stateless, provably uniform ---------------------
+    def _sample_probe(self, n: int) -> SampleSet:
+        acc_rows: List[Rows] = []
+        acc_home: List[np.ndarray] = []
+        total = 0
+        topups = 0
+        target = n
+        dead_pieces: set = set()
+        while total < n:
+            probs = self._selection_probs()
+            for oidx in dead_pieces:
+                probs[oidx] = 0.0
+            if probs.sum() <= 0:
+                raise RuntimeError("all cover pieces unreachable")
+            probs = probs / probs.sum()
+            need_by_join = self.rng.multinomial(target, probs)
+            for oidx, name in enumerate(self.order):
+                need = int(need_by_join[oidx])
+                got = 0
+                rounds = 0
+                while got < need:
+                    rounds += 1
+                    if rounds > self.retry_rounds:
+                        self.stats.dropped_slots += need - got
+                        dead_pieces.add(oidx)
+                        break
+                    want = max((need - got) * self.candidate_batch, 64)
+                    rows = self._uniform_candidates(name, want)
+                    if rows is None:
+                        self.stats.dropped_slots += need - got
+                        dead_pieces.add(oidx)
+                        break
+                    pred_ok = self._pred_ok(name, rows)
+                    if pred_ok is None:
+                        pred_ok = np.ones(rows_length(rows), dtype=bool)
+                    else:
+                        self.stats.pred_rejects += int((~pred_ok).sum())
+                    cover_ok = self._cover_accept_probe(oidx, rows)
+                    # cover_rejects counts candidates that pass the predicate
+                    # but land outside the piece (the device round's split)
+                    self.stats.cover_rejects += int((pred_ok & ~cover_ok).sum())
+                    keep = pred_ok & cover_ok
+                    kidx = np.nonzero(keep)[0][: need - got]
+                    self.stats.iterations += want
+                    if kidx.shape[0]:
+                        acc_rows.append(rows_subset(rows, kidx))
+                        acc_home.append(np.full(kidx.shape[0], oidx,
+                                                dtype=np.int64))
+                        got += int(kidx.shape[0])
+                total += got
+            target = n - total
+            topups += 1
+            if topups > 64 and total < n:
+                raise RuntimeError("SetUnionSampler: top-up budget exhausted")
+        rows = {a: c[:n] for a, c in rows_concat(acc_rows).items()}
+        home = np.concatenate(acc_home)[:n]
+        perm = self.rng.permutation(home.shape[0])
+        rows = {a: c[perm] for a, c in rows.items()}
+        fp = fingerprint128([rows[a] for a in sorted(self.attrs)])
+        self.stats.samples_emitted += n
+        return SampleSet(self.attrs, rows, home[perm], fp, self.stats)
+
+    # -- record mode / strict paper loop: sequential Algorithm 1 --------------
+    def _sample_sequential(self, n: int) -> SampleSet:
+        probs = self._selection_probs()
+        out_rows: List[Dict[str, int]] = []
+        out_home: List[int] = []
+        out_fp: List[int] = []
+        guard = 0
+        max_guard = max(200 * n, 10_000)
+        while len(out_rows) < n:
+            guard += 1
+            if guard > max_guard:
+                raise RuntimeError("Algorithm 1 budget exhausted (check "
+                                   "parameters)")
+            oidx = int(self.rng.choice(len(self.order), p=probs))
+            name = self.order[oidx]
+            accepted = None
+            inner = self.retry_rounds if not self.strict_paper_loop else 1
+            for _ in range(inner):
+                rows = self._uniform_candidates(name, 1)
+                if rows is None:
+                    self.stats.dropped_slots += 1
+                    break
+                self.stats.iterations += 1
+                fp2 = fingerprint128([rows[a] for a in sorted(self.attrs)])[0]
+                fpi = _fp_to_int(fp2)
+                pred_ok = self._pred_ok(name, rows)
+                if pred_ok is not None and not bool(pred_ok[0]):
+                    self.stats.pred_rejects += 1
+                    continue
+                if self.membership == "probe":
+                    if bool(self._cover_accept_probe(oidx, rows)[0]):
+                        accepted = (rows, fpi)
+                        break
+                    self.stats.cover_rejects += 1
+                else:
+                    home = self._record.get(fpi)
+                    if home is not None and home < oidx:
+                        self.stats.cover_rejects += 1
+                        continue  # Alg 1 line 8: reject
+                    if home is not None and home > oidx:
+                        # Alg 1 lines 10-12: revision
+                        self.stats.revisions += 1
+                        removed = [k for k, f in enumerate(out_fp) if f == fpi]
+                        for k in reversed(removed):
+                            out_rows.pop(k)
+                            out_home.pop(k)
+                            out_fp.pop(k)
+                        self.stats.backtrack_removed += len(removed)
+                    self._record[fpi] = oidx
+                    accepted = (rows, fpi)
+                    break
+            if accepted is None:
+                continue
+            rows, fpi = accepted
+            out_rows.append({a: int(rows[a][0]) for a in self.attrs})
+            out_home.append(oidx)
+            out_fp.append(fpi)
+        rows = {a: np.asarray([r[a] for r in out_rows[:n]], dtype=np.int64)
+                for a in self.attrs}
+        home = np.asarray(out_home[:n], dtype=np.int64)
+        fp = fingerprint128([rows[a] for a in sorted(self.attrs)])
+        self.stats.samples_emitted += n
+        return SampleSet(self.attrs, rows, home, fp, self.stats)

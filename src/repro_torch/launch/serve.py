@@ -13,6 +13,13 @@ batching) over the torch engine, on the card unless ``--device cpu``::
 
 ``--workload UQ2`` builds the §8.3 predicate workload in its default
 pushdown mode; ``--plan adaptive`` runs the adaptive round planner.
+``--backend numpy`` serves from the host engine (the reference's default
+backend, its exact batched probe loop; no device) instead of the default
+``torch`` engine::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
+        --backend numpy --scale 0.05 --requests 2 --samples 256
+
 ``--shards N`` runs the sharded engine of :mod:`repro_torch.core.sharding`
 (0, the default, is unsharded): ``--shards 1`` in this process; ``N > 1``
 needs a process group of N ranks, so run it under torchrun, which starts
@@ -25,10 +32,10 @@ the N processes (one card each), whose group this CLI initialises
 Every rank serves the same samples; rank 0 prints.
 
 It prints the served rate, ψ (candidate draws per emitted sample), rounds,
-host syncs, the engine's round loop (``fused_rounds="device"`` unsharded:
-one CUDA graph per capacity class, one host sync per chunk of rounds;
-``"host"`` with ``--shards``: one sync per round) and the request latency's
-p50/p99.  ``--metrics-port P`` starts a background HTTP thread with
+host syncs, the engine's round loop (``fused_rounds="device"``: one CUDA
+graph per capacity class, one host sync per chunk of rounds; at
+``--shards N > 1`` the same step runs eagerly in chunks) and the request
+latency's p50/p99.  ``--metrics-port P`` starts a background HTTP thread with
 ``/metrics`` (Prometheus text: the engine's per-piece counters, rounds and
 samples, the request-latency histogram with p50/p99, queue depth,
 per-replica engine stats) and ``/healthz`` (``P=0`` binds an ephemeral
@@ -55,9 +62,9 @@ import numpy as np
 
 def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
                   round_batch: int = 8192, plan: str = "static",
-                  shards: int = 0):
-    """Workload → histogram warm-up → cover → ``SetUnionSampler`` (on a
-    mesh of ``shards`` ranks when ``shards > 0``).
+                  shards: int = 0, backend: str = "torch"):
+    """Workload → histogram warm-up → cover → ``SetUnionSampler`` on
+    ``backend`` (on a mesh of ``shards`` ranks when ``shards > 0``).
 
     Returns ``(sampler, workload, estimates, host_build_seconds)``."""
     from ..core.framework import estimate_union, warmup
@@ -73,7 +80,7 @@ def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
     wr = warmup(wl.cat, wl.joins, method="histogram")
     est = estimate_union(wr.oracle)
     sampler = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=seed,
-                              backend="torch", device=device,
+                              backend=backend, device=device,
                               round_batch=round_batch, plan=plan, mesh=mesh)
     return sampler, wl, est, time.perf_counter() - t0
 
@@ -97,7 +104,7 @@ def serve(sampler, requests: int, samples: int, batch: int,
     seconds after the requests (for external scrapers of ``/metrics``)."""
     from ..serve import SampleService
 
-    engine = sampler.engine
+    engine = sampler.engine         # None: the host engine's loops
 
     def service():
         if getattr(engine, "world", 1) > 1:
@@ -129,9 +136,9 @@ def serve(sampler, requests: int, samples: int, batch: int,
         "pred_rejects": st.pred_rejects,
         "dropped_slots": st.dropped_slots,
         "home_counts": homes.tolist(),
-        "host_syncs": engine.host_syncs,
-        "rounds_total": engine.total_rounds,
-        "fused_rounds": engine.fused_rounds,
+        "host_syncs": getattr(engine, "host_syncs", 0),
+        "rounds_total": getattr(engine, "total_rounds", 0),
+        "fused_rounds": getattr(engine, "fused_rounds", None),
     }
 
 
@@ -145,6 +152,9 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--samples", type=int, default=4096)
     ap.add_argument("--round-batch", type=int, default=8192)
+    ap.add_argument("--backend", choices=("torch", "numpy"), default="torch",
+                    help="'torch': the device engine (the card unless "
+                         "--device cpu); 'numpy': the host engine")
     ap.add_argument("--plan", choices=("static", "adaptive"),
                     default="static",
                     help="round planner: 'adaptive' budgets candidates by "
@@ -170,7 +180,7 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     sampler, _, _, build_s = build_sampler(args.workload, args.scale,
                                            args.seed, args.device,
                                            args.round_batch, args.plan,
-                                           args.shards)
+                                           args.shards, args.backend)
     sampler.sample(256)                     # warm-up call
     from .. import obs
     metrics = None
@@ -189,8 +199,9 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     if rank == 0:
         print(f"served {args.requests} requests x {args.samples} samples "
               f"({out['samples']} total) in {out['seconds']:.3f}s — "
-              f"{out['samples_per_s']:,.0f} samples/s [backend=torch, "
-              f"device={sampler.device}, workload={args.workload}, "
+              f"{out['samples_per_s']:,.0f} samples/s "
+              f"[backend={args.backend}, device={sampler.device or 'host'}, "
+              f"workload={args.workload}, "
               f"plan={args.plan}; psi={out['psi']:.3f}, "
               f"draws={out['candidate_draws']}, "
               f"rejects={out['cover_rejects']}, "

@@ -117,7 +117,7 @@ def test_baselines_keep_the_reference_errors():
     with pytest.raises(ValueError, match="degenerate join sizes"):
         DisjointUnionSampler(cat, specs, {j.name: 0.0 for j in specs},
                              device="cpu")
-    with pytest.raises(ValueError, match="backend='torch' only"):
+    with pytest.raises(ValueError, match="unknown backend 'jax'"):
         DisjointUnionSampler(cat, specs, sizes, backend="jax", device="cpu")
     bern = BernoulliUnionSampler(cat, specs, sizes, U, seed=1, device="cpu")
     with pytest.raises(RuntimeError, match="round budget exhausted"):

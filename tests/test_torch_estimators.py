@@ -51,8 +51,9 @@ from repro.data.workloads import uq1, uq2, uq3, uq4
 
 from repro_torch.core.backends.torch_backend import (TorchCandidateSource,
                                                      TorchTreeJoin)
-from repro_torch.core.estimators import (EstimatorBackend, ReservoirPool,
-                                         TorchEstimator, get_estimator)
+from repro_torch.core.estimators import (EstimatorBackend, NumpyEstimator,
+                                         ReservoirPool, TorchEstimator,
+                                         get_estimator)
 from repro_torch.core.estimators.torch_estimator import (
     TorchHistogramOverlap, TorchRunning, TorchWalkJoin, _batch_moments,
     _merge_moments)
@@ -294,8 +295,10 @@ def test_get_estimator_routing():
     est = get_estimator("torch", pcat, pspecs, seed=0, batch=64, device="cpu")
     assert isinstance(est, TorchEstimator) and est.batch == 64
     assert get_estimator(est, pcat, pspecs) is est
-    for bad in ("numpy", "jax", "gpu"):
-        with pytest.raises(ValueError, match="one engine: 'torch'"):
+    host = get_estimator("numpy", pcat, pspecs, seed=0, batch=64, pool_cap=8)
+    assert isinstance(host, NumpyEstimator) and host._pool.cap == 8
+    for bad in ("jax", "gpu"):
+        with pytest.raises(ValueError, match="unknown estimator backend"):
             get_estimator(bad, pcat, pspecs, device="cpu")
 
 
@@ -351,7 +354,7 @@ def test_candidate_source_equals_reference(name):
     res_total = 0
     for count in (1, 1, 90, 300, 1, 513, 40, 1, 700):
         a_rows, a_draws = ref.draw(rng, count)
-        b_rows, b_draws = port.draw(count)
+        b_rows, b_draws = port.draw(None, count)
         assert a_draws == b_draws, count
         for a in ref.attrs:
             assert b_rows[a].dtype == np.int64
@@ -370,7 +373,7 @@ def test_candidate_source_empty_join_raises():
                                             ["b", "c"])])
     src = TorchCandidateSource(TorchTreeJoin(pcat, pspec, device="cpu"))
     with pytest.raises(EmptyJoinError):
-        src.draw(1)
+        src.draw(None, 1)
 
 
 # ---------------------------------------------------------------------------

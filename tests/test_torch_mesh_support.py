@@ -16,12 +16,15 @@ The workers check on every rank:
   ``merge_statistics`` of per-rank ``RunningMean``s and
   ``merge_moment_stack`` of the gathered moments;
 * :func:`check_uniform` — ``SetUnionSampler(mesh=)`` on UQ1 (scale 0.05,
-  overlap 0.5, seed 1, two joins; static and adaptive plan) and UQ4
-  (scale 0.02) passes the
+  overlap 0.5, seed 1, two joins; static plan in both loops, adaptive plan)
+  and UQ4 (scale 0.02) passes the
   reference's bar: ``N = 120·U`` rows uniform over the exact union
   (chi-square p > 1e-3), every row in its home piece and no earlier one,
   the same ``SampleSet`` on every rank, and UQ1's piece marginals within
-  0.03 of the unsharded engine's;
+  0.03 of the host engine's (``backend="numpy"``);
+* :func:`check_device_loop` — the per-rank device loop: the same
+  ``SampleSet``, counters and chunks on every rank, one host sync per chunk
+  plus the fetch, rows in their home piece, banks drained;
 * :func:`check_online` — ``OnlineUnionSampler(mesh=)`` smoke: every size
   accumulator's count is a multiple of ``world · rw_batch``.
 """
@@ -178,12 +181,15 @@ def check_uniform(world: int) -> None:
     from repro_torch.data.workloads import uq1, uq4
     mesh = make_sampler_mesh(world=world, device="cpu")
     uq1_2 = uq1(scale=0.05, overlap=0.5, seed=1, n_joins=2)
-    for wl, plan in ((uq1_2, "static"), (uq1_2, "adaptive"),
-                     (uq4(scale=0.02, seed=0), "static")):
+    for wl, plan, mode in ((uq1_2, "static", "device"),
+                           (uq1_2, "static", "host"),
+                           (uq1_2, "adaptive", "device"),
+                           (uq4(scale=0.02, seed=0), "static", "device")):
         est = _exact_cover(wl)
         U = exact_union_size(wl.cat, wl.joins)
         s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=11,
-                            round_batch=512, mesh=mesh, plan=plan)
+                            round_batch=512, mesh=mesh, plan=plan,
+                            fused_rounds=mode)
         N = 120 * U
         ss = s.sample(N)
         assert len(ss) == N
@@ -194,11 +200,51 @@ def check_uniform(world: int) -> None:
         _same_on_every_rank(np.concatenate([ss.matrix(), ss.home[:, None]],
                                            axis=1), world)
         if wl.joins[0].name.startswith("UQ1"):
+            # the reference's bar: the host engine's piece marginals
             plain = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=3,
-                                    device="cpu").sample(8000)
+                                    backend="numpy").sample(8000)
             fa = np.bincount(plain.home, minlength=2) / len(plain)
             fb = np.bincount(ss.home, minlength=2) / len(ss)
             assert np.abs(fa - fb).max() < 0.03, (fa, fb)
+
+
+def check_device_loop(world: int) -> None:
+    """``fused_rounds="device"`` (per-rank banks, the gated step run in
+    chunks): every rank returns the same ``SampleSet`` and counters, one
+    host sync per chunk plus the fetch, rows in their home piece and no
+    earlier one; forced chunks and small banks (pushes and drains on every
+    rank) included, over calls that cross capacity classes."""
+    from repro_torch.core.sharding import make_sampler_mesh
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.data.workloads import uq1
+    mesh = make_sampler_mesh(world=world, device="cpu")
+    wl = uq1(scale=0.05, overlap=0.5, seed=1, n_joins=3)
+    est = _exact_cover(wl)
+    for plan, chunk in (("static", None), ("adaptive", 3)):
+        s = SetUnionSampler(wl.cat, wl.joins, est.cover, seed=4,
+                            round_batch=256, mesh=mesh, plan=plan)
+        eng = s.engine
+        assert eng.fused_rounds == "device" and eng._bank_cap() == \
+            max(1, eng.surplus_cap // world)
+        eng.chunk_rounds = chunk
+        for n in (700, 2500, 300):
+            ss = s.sample(n)
+            assert len(ss) == n
+            assert eng.last_host_syncs == eng.last_chunks + 1
+            mm = s.prober.membership_matrix(ss.rows, s.order)
+            assert np.array_equal(np.argmax(mm, axis=1), ss.home)
+            _same_on_every_rank(np.concatenate(
+                [ss.matrix(), ss.home[:, None]], axis=1), world)
+            _same_on_every_rank(np.array(
+                list(ss.stats.as_dict().values())
+                + [eng.last_rounds, eng.last_chunks]), world)
+        _same_on_every_rank(eng.piece_stats, world)
+        # the banks are per rank: together they hold the global count
+        cnt = eng._state.count.clone()
+        dist.all_reduce(cnt)
+        if plan == "adaptive":
+            assert torch.equal(cnt, eng._state.gcount)
+        assert int(eng.piece_stats[:, 3].sum()) > 0     # banks drained
 
 
 def check_online(world: int) -> None:
@@ -220,10 +266,12 @@ def check_online(world: int) -> None:
 def world2(world: int) -> None:
     check_exchange(world)
     check_moment_merge(world)
+    check_device_loop(world)
 
 
 def world4(world: int) -> None:
     check_exchange(world)
     check_moment_merge(world)
     check_uniform(world)
+    check_device_loop(world)
     check_online(world)

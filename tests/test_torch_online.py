@@ -124,9 +124,9 @@ def test_online_rejects_what_the_port_does_not_run():
     wl = uq3(scale=0.01)
     cat, specs, _ = to_port(wl.joins)
     for kw, match in ((dict(backend="jax"), "unknown backend"),
-                      (dict(backend="numpy"), "unknown backend"),
-                      (dict(estimator="numpy"), "one engine"),
-                      (dict(estimator="jax"), "one engine"),
+                      (dict(backend="gpu"), "unknown backend"),
+                      (dict(estimator="gpu"), "unknown estimator backend"),
+                      (dict(estimator="jax"), "unknown estimator backend"),
                       (dict(plan="eager"), "plan")):
         with pytest.raises(ValueError, match=match):
             OnlineUnionSampler(cat, specs, device="cpu", **kw)

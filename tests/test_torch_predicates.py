@@ -46,6 +46,7 @@ from repro.core.size_estimation import olken_bound as ref_olken
 from repro.core.union_sampler import SetUnionSampler as RefSetUnionSampler
 from repro.data import workloads as ref_wl
 
+from repro_torch import obs
 from repro_torch.core import framework as pt_fw
 from repro_torch.core import predicates as pt_pred
 from repro_torch.core.backends.torch_backend import (TorchBackend,
@@ -120,9 +121,19 @@ def test_unlowerable_predicate_raises_in_sampler(uq2_pair):
     pred = pt_pred.RejectingPredicate([pt_pred.Pred("psize", "<", 2**40)])
     reason = ref_pred.device_lower_reason(
         [ref_pred.Pred("psize", "<", 2**40)], ref.joins[0].output_attrs)
+    # on a mesh it raises; without one the union degrades to the host loop
+    # and records the reference's reason
+    from repro_torch.core.sharding import make_sampler_mesh
     with pytest.raises(ValueError, match="not device-lowerable") as e:
-        SetUnionSampler(cat, specs, cover, device="cpu", predicate=pred)
+        SetUnionSampler(cat, specs, cover, predicate=pred,
+                        mesh=make_sampler_mesh(world=1, device="cpu"))
     assert reason in str(e.value)
+    seq0 = max([e["seq"] for e in obs.fallback_events()], default=-1)
+    s = SetUnionSampler(cat, specs, cover, device="cpu", predicate=pred)
+    assert s.engine is None
+    ev = [e for e in obs.fallback_events() if e["seq"] > seq0]
+    assert [(x["reason"], x["detail"]) for x in ev] == [
+        ("predicate_unsupported", reason)]
 
 
 # ---------------------------------------------------------------------------
