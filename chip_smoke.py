@@ -48,7 +48,12 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    for ``segdegree`` its launches per call, CTAs (one wave) and the ptxas
    report of both key widths; for decode attention its CTAs (one wave) and
    the ptxas report of the bf16, D 256, G 2 instantiation that these
-   widths launch;
+   widths launch; then decode attention at every (H, KVH, D) of the
+   configs and their smoke configs (``cases.config_attention_shapes``: D
+   16, 64, 112, 128 and 256, G from 1 to 48), bf16, B 8, S 4096, each
+   within rtol 1e-2, atol 1e-3 of the plain version and timed beside its
+   bound, the plain version and ``scaled_dot_product_attention``, one
+   ``kernels`` row each; shapes the kernel does not take must raise;
 6. residual path — UQ4 (the §8.2 residual node runs ``probe_pick``;
    before its serve, ``probe_pick`` is timed at the residual index);
 7. branching tree — UQ3 at the UQ1 scale: every join, the branching
@@ -126,7 +131,24 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    their exact unions (chi-square), on the card, and every row is in its
    home piece and in no earlier one (record mode included); ONLINE UQ1 at
    scale 0.05 meets the reference's Algorithm-2 bar (``sample(40·U)``:
-   ≥ 0.9·U distinct rows, max count ≤ 12× the mean, reuse accepts > 0).
+   ≥ 0.9·U distinct rows, max count ≤ 12× the mean, reuse accepts > 0);
+12. LM serving (``[lm]``) — gemma2-9b and then minitron-8b at full width
+   from random weights (``init_params``, seeded, bf16 weights, one model on
+   the card at a time): ``serve_lm`` at the serve CLI's defaults (4 slots,
+   8 requests, 16 new tokens, ``max_len`` 64; requests, steps, steps/s,
+   tokens/s) with B4 launched exactly twice per attention layer and decode
+   step (counts set to 0 just before, read just after); device ms per
+   step (profiler); nine decode steps through B4 against the same steps
+   with ``attention.decode_attention`` replaced by the plain version by
+   the phase (``cases.lm_logits_agreement``: correlation > 0.999, largest
+   difference ≤ 10 % of the largest logit, greedy agreement ≥ 0.5) and
+   the last step against ``prefill_step`` (the reference's bar:
+   correlation > 0.99, top-1 ≥ 0.5); for gemma2-9b one step at 8 slots,
+   lengths in [4096, 8192), ``max_len`` 8192, caches filled from a seeded
+   generator: device ms, B4's share, the device busy share, the byte
+   bound (weights + kept K/V rows), peak memory; then
+   ``python -m repro_torch.launch.serve --mode lm --smoke --arch
+   gemma2-9b`` in a subprocess (D 16 in B4), which must exit 0.
 
 Every served path runs the engine's default round loop,
 ``fused_rounds="device"``: one round captured as a CUDA graph per capacity
@@ -161,7 +183,10 @@ replicas, the sharded engine in both loops and its warm-up, the
 ``[host-engine]`` mixed union and ``strict_paper_loop``, the ``--shards 1``
 CLI and rank 0 of ``[sharded-w2]`` in both loops among them), and the
 ``probe_pick`` row
-its time at walk width (``walk_ms`` and the ``walk_`` keys).
+its time at walk width (``walk_ms`` and the ``walk_`` keys).  The
+``decode_attention`` row's ``launches`` are ``[lm]``'s gemma2-9b
+``serve_lm`` run, with the ``[ops]`` and minitron-8b counts under
+``launches_by_path`` and ``launches_per_decode_step`` beside them.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -1150,6 +1175,284 @@ def phase_ops(sampler, seed: int):
                "attention_max_abs_err": att_err,
                "attention_nocap_control_excess": nocap_excess}
     return [seg_row, att_row], summary
+
+
+# [ops]: decode attention at every attention shape of the configs, at B
+# requests of a context of S slots
+CONFIG_ATTN_BATCH, CONFIG_ATTN_SEQ = 8, 4096
+
+
+def phase_attention_shapes(seed: int) -> list:
+    """Decode attention at every (H, KVH, D) of the configs and their smoke
+    configs (``cases.config_attention_shapes``), bf16, B 8, S 4096, lengths
+    drawn in [S/2, S] as ``cases.attention_inputs`` draws them, softcap 0:
+    each call against the plain version in fp32 (``attention_tol``), and
+    timed beside its bound, the plain version and
+    ``scaled_dot_product_attention`` (``enable_gqa``) on the same inputs.
+    The counts are set to 0 just before the calls and read after each.
+    Returns one ``kernels`` row per shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, build
+    from repro_torch.kernels.cases import attention_tol, config_attention_shapes
+    B, S = CONFIG_ATTN_BATCH, CONFIG_ATTN_SEQ
+    tol = attention_tol(torch.bfloat16)
+    rows = []
+    build.reset_launch_counts()
+    for i, (H, KVH, D) in enumerate(config_attention_shapes()):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + i)
+        q, k, v = (torch.randn(sh, generator=g, device="cuda").to(
+            torch.bfloat16) for sh in ((B, H, D), (B, S, KVH, D),
+                                       (B, S, KVH, D)))
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device="cuda")
+        before = build.launch_counts["decode_attention"]
+        out = attention.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        launched = build.launch_counts["decode_attention"] - before
+        want = attention.decode_attention_plain(q.float(), k.float(),
+                                                v.float(), lens)
+        torch.testing.assert_close(out.float(), want, **tol)
+        err = float((out.float() - want).abs().max())
+        del want
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.unsqueeze(2), kt, vt, attn_mask=mask, enable_gqa=True)
+        b_ms, b_by = _attention_bound(q, k, lens, 0)
+        row = {
+            "name": f"decode_attention H{H}/KVH{KVH}/D{D}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention.py:32",
+            "launches": launched, "path": "ops (config shapes)",
+            "max_abs_err": err,
+            "ms": _device_ms(lambda: attention.decode_attention(q, k, v, lens),
+                             reps=20),
+            "plain_ms": _device_ms(lambda: attention.decode_attention_plain(
+                q, k, v, lens), reps=3, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": _device_ms(library, reps=20),
+            "library_note": "scaled_dot_product_attention(attn_mask, "
+                            "enable_gqa=True), K/V as (B, KVH, S, D)",
+            "shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D, "G": H // KVH,
+                      "dtype": "bfloat16", "softcap": 0.0, "window": 0},
+            "tolerance": tol,
+            "ctas": attention.kernel_ctas(H, KVH, D, True, q.device),
+        }
+        row["bound_share"] = b_ms / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+        del q, k, v, kt, vt, out
+    # a shape the kernel does not take raises and launches nothing
+    before = dict(build.launch_counts)
+    for H, KVH, D in ((4, 2, 32), (49, 1, 64)):
+        z = torch.zeros((1, 8, KVH, D), device="cuda")
+        try:
+            attention.decode_attention(torch.zeros((1, H, D), device="cuda"),
+                                       z, z, torch.tensor([8], device="cuda"))
+        except ValueError:
+            continue
+        raise AssertionError(f"[ops] decode attention took H {H}, KVH {KVH}, "
+                             f"D {D}")
+    if dict(build.launch_counts) != before:
+        raise AssertionError("[ops] a refused attention shape launched")
+    return rows
+
+
+# [lm]: the serve CLI's defaults (src/repro/launch/serve.py:104-111), the
+# decode steps held against the plain path and against prefill, and
+# gemma2-9b's real-context step
+LM_ARCHS = ("gemma2-9b", "minitron-8b")
+LM_CLI = {"slots": 4, "requests": 8, "max_new": 16, "max_len": 64}
+LM_CHECK_STEPS = 9
+LM_CONTEXT = {"slots": 8, "max_len": 8192, "lo": 4096, "hi": 8192}
+
+
+def _lm_steps(cfg, params, toks, max_len: int):
+    """Decode ``toks`` (B, T) one step at a time from an empty cache at
+    lengths 0..T-1; returns the (T, B, vocab) logits and the B4 launches of
+    each step."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models.serve import decode_step, init_cache
+    B, T = toks.shape
+    cache = init_cache(cfg, B, max_len, device="cuda")
+    logits, launches = [], []
+    for t in range(T):
+        before = build.launch_counts["decode_attention"]
+        cache, lg = decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                torch.full((B,), t, device="cuda"))
+        torch.cuda.synchronize()
+        launches.append(build.launch_counts["decode_attention"] - before)
+        logits.append(lg)
+    return torch.stack(logits), launches
+
+
+def phase_lm(arch: str, seed: int = 0) -> dict:
+    """One config at full width from random weights on the card: ``serve_lm``
+    at the CLI's defaults (counts set to 0 just before, read just after: B4
+    twice per attention layer and step); device ms per decode step
+    (profiler); ``LM_CHECK_STEPS`` decode steps through B4 and, with
+    ``attention.decode_attention`` replaced by the plain version by this
+    phase, the same steps through ``decode_attention_plain``
+    (``cases.lm_logits_agreement``); the last kernel step's logits against
+    ``prefill_step`` over the same tokens (the reference's bar: correlation
+    > 0.99, top-1 agreement >= 0.5); for gemma2-9b one timed step at a real
+    context (``LM_CONTEXT``).  Frees the model before it returns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention, build
+    from repro_torch.kernels.cases import lm_logits_agreement
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.serve import decode_step, init_cache, prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch)
+    n_attn = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in params.values()),
+           "n_params": sum(t.numel() for t in params.values())}
+
+    # 1. the CLI's loop at its defaults
+    build.reset_launch_counts()
+    served = serve_lm(cfg, params, seed=seed, device="cuda", **LM_CLI)
+    torch.cuda.synchronize()
+    b4 = build.launch_counts["decode_attention"]
+    if len(served["done"]) != LM_CLI["requests"]:
+        raise AssertionError(f"[lm] {arch}: served {len(served['done'])} of "
+                             f"{LM_CLI['requests']} requests")
+    if b4 != 2 * n_attn * served["steps"]:
+        raise AssertionError(f"[lm] {arch}: {b4} B4 launches in "
+                             f"{served['steps']} steps, not 2 x {n_attn} each")
+    out["serve_lm"] = {k: served[k] for k in ("steps", "seconds",
+                                              "steps_per_s", "tokens_per_s")}
+    out["serve_lm"].update(cli=LM_CLI, requests_served=len(served["done"]),
+                           b4_launches=b4,
+                           b4_launches_per_step=b4 / served["steps"],
+                           first_tokens=[t[:4] for _, t in served["done"][:2]])
+
+    # 2. device time of one step at the CLI's shape
+    B, L = LM_CLI["slots"], LM_CLI["max_len"]
+    cache = init_cache(cfg, B, L, device="cuda")
+    tok1 = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    lens = torch.tensor([3, 17, 30, 62][:B], device="cuda")
+    out["cli_step_device_ms"] = _device_ms(
+        lambda: decode_step(params, cfg, cache, tok1, lens), reps=10, warm=3)
+    del cache
+
+    # 3. kernel path against the plain path; 4. decode against prefill
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    toks = torch.randint(4, cfg.vocab, (B, LM_CHECK_STEPS), generator=g,
+                         device="cuda")
+    kern, launches = _lm_steps(cfg, params, toks, L)
+    if any(n != 2 * n_attn for n in launches):
+        raise AssertionError(f"[lm] {arch}: B4 launches per step {launches}")
+    real = attention.decode_attention
+
+    def plain(q, k, v, lengths, softcap=0.0, window=0):
+        return attention.decode_attention_plain(q, k, v, lengths,
+                                                softcap=softcap, window=window)
+    attention.decode_attention = plain
+    try:
+        ref, plain_launches = _lm_steps(cfg, params, toks, L)
+    finally:
+        attention.decode_attention = real
+    if any(plain_launches) or not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f"[lm] {arch}: plain path launched "
+                             f"{plain_launches} or kernel logits not finite")
+    out["kernel_vs_plain"] = lm_logits_agreement(kern, ref, f"[lm] {arch}")
+    out["kernel_vs_plain"]["steps"] = LM_CHECK_STEPS
+    full = prefill_step(params, cfg, {"tokens": toks})
+    got, want = kern[-1].double().cpu().numpy(), full.double().cpu().numpy()
+    corr = float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
+    top1 = float((got.argmax(-1) == want.argmax(-1)).mean())
+    if not (corr > 0.99 and top1 >= 0.5):
+        raise AssertionError(f"[lm] {arch}: decode vs prefill correlation "
+                             f"{corr}, top-1 {top1}")
+    out["decode_vs_prefill"] = {"steps": LM_CHECK_STEPS, "corr": corr,
+                                "top1": top1}
+    out["b4_launches_per_step"] = 2 * n_attn
+    del kern, ref, full
+
+    # 5. gemma2-9b at a real context
+    if arch == "gemma2-9b":
+        out["context"] = _lm_context_step(cfg, params, seed)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _lm_context_step(cfg, params, seed: int) -> dict:
+    """One decode step at ``LM_CONTEXT``: lengths drawn in [lo, hi], caches
+    filled from a seeded generator; its device ms, B4's share of it, the
+    device busy share of the step's wall time, and its byte bound (every
+    weight once, and each K/V row the masks keep once)."""
+    import torch
+    from repro_torch.models.serve import decode_step, init_cache
+    B, L = LM_CONTEXT["slots"], LM_CONTEXT["max_len"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    cache = init_cache(cfg, B, L, device="cuda")
+    for t in cache.values():
+        for part in t:
+            part.copy_(torch.randn(part.shape, generator=g, device="cuda"))
+    lens = torch.randint(LM_CONTEXT["lo"], LM_CONTEXT["hi"], (B,),
+                         generator=g, device="cuda")
+    toks = torch.randint(4, cfg.vocab, (B, 1), generator=g, device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+
+    def step():
+        return decode_step(params, cfg, cache, toks, lens)[1]
+    logits = step()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[lm] context step: logits not finite")
+    ev = _device_events(step, 5)
+    dev_ms = sum(us for _, us in ev) / 5 / 1e3
+    b4_ms = sum(us for n, us in ev if "decode_attn" in n) / 5 / 1e3
+    wall_ms = _call_ms(step, reps=5, warm=1)
+    W = min(cfg.window, L)
+    kept = (lens + 1).clamp(max=L).sum() + (lens + 1).clamp(max=W).sum()
+    row_bytes = 2 * cfg.n_kv_heads * cfg.head_dim * 2      # K and V, bf16
+    kv_bytes = int(kept) * (cfg.n_layers // 2) * row_bytes
+    w_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"slots": B, "max_len": L, "lengths": lens.tolist(),
+            "device_ms": dev_ms, "b4_ms": b4_ms, "b4_share": b4_ms / dev_ms,
+            "wall_ms": wall_ms, "device_busy_share": dev_ms / wall_ms,
+            "weight_bytes": w_bytes, "kv_bytes_kept": kv_bytes,
+            "cache_bytes": cache_bytes, "bound_ms": bound_ms,
+            "bound_share": bound_ms / dev_ms,
+            "b4_events_per_step": sum(1 for n, _ in ev if "decode_attn" in n)
+            / 5}
+
+
+def phase_lm_cli() -> dict:
+    """``python -m repro_torch.launch.serve --mode lm --smoke --arch
+    gemma2-9b`` in a subprocess on the card (D 16 in B4); it must exit 0."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--mode", "lm", "--smoke", "--arch", "gemma2-9b"],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0 or not proc.stdout.startswith("served 8 requests"):
+        raise AssertionError(f"[lm] the smoke CLI failed ({proc.returncode}):"
+                             f"\n{proc.stdout}\n{proc.stderr[-3000:]}")
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+            "stdout": proc.stdout.strip().splitlines()}
 
 
 # wander-join batch widths: the [walks] check and timing, the online
@@ -2433,6 +2736,12 @@ def main(argv=None) -> int:
         r["main_path_launches"] = main_out["launches"][r["name"]]
     rows.extend(ops_rows)
     print("[ops] " + json.dumps(ops_out), flush=True)
+    shape_rows = phase_attention_shapes(seed=0)
+    rows.extend(shape_rows)
+    print("[ops] decode attention at the configs' shapes, kernel vs plain, "
+          "ms / bound / SDPA: " + json.dumps(
+              {r["name"]: [r["max_abs_err"], r["ms"], r["bound_ms"],
+                           r["library_ms"]] for r in shape_rows}), flush=True)
     mark("ops")
 
     # 7. residual path
@@ -2670,6 +2979,23 @@ def main(argv=None) -> int:
     print("[reference] ONLINE UQ1 at scale 0.05 on the card, the "
           "reference's Algorithm-2 bar: " + json.dumps(online_ref), flush=True)
     mark("reference online")
+
+    # 12. LM serving at full width from random weights: B4 on every decode
+    # attention of the served path
+    lm_out = {}
+    for arch in LM_ARCHS:
+        lm_out[arch] = phase_lm(arch)
+        print(f"[lm] {arch} " + json.dumps(lm_out[arch]), flush=True)
+    print("[lm] smoke CLI " + json.dumps(phase_lm_cli()), flush=True)
+    mark("lm")
+    att_row = next(r for r in rows if r["name"] == "decode_attention")
+    att_row["launches_by_path"] = {"[ops]": att_row["launches"]} | {
+        f"[lm] {a} serve_lm": lm_out[a]["serve_lm"]["b4_launches"]
+        for a in LM_ARCHS}
+    att_row["launches"] = lm_out["gemma2-9b"]["serve_lm"]["b4_launches"]
+    att_row["path"] = "[lm] gemma2-9b serve_lm at the CLI's defaults"
+    att_row["launches_per_decode_step"] = {
+        a: lm_out[a]["b4_launches_per_step"] for a in LM_ARCHS}
 
     cuts = [f"{what} {got:g} (full: {full:g})" for what, got, full in (
         ("UQ1 scale", args.scale, UQ1_SCALE),

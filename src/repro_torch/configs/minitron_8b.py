@@ -1,0 +1,16 @@
+"""minitron-8b [dense] — pruned nemotron [arXiv:2407.14679; hf]."""
+
+from ..models.transformer import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="minitron-8b", family="dense", n_layers=32, d_model=4096,
+        n_heads=32, n_kv_heads=8, head_dim=128, d_ff=16384, vocab=256000)
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="minitron-8b-smoke", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=512,
+        q_chunk=32, kv_chunk=32)

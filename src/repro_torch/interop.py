@@ -7,6 +7,10 @@ numpy arrays and tuples, so a test can feed both packages the same state
 without the port importing the reference.  §8.3 predicates travel as plain
 ``(attr, op, value)`` tuples, and a pushdown's unfiltered base join as a
 join tuple over the base relations.
+
+A model's weights travel the same way: :func:`params_from_numpy` takes the
+reference's parameter dict (name → numpy array, the names of
+``param_entries``) and returns the port's.
 """
 
 from __future__ import annotations
@@ -14,12 +18,15 @@ from __future__ import annotations
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .core.cover import Cover
 from .core.index import Catalog
 from .core.joins import JoinNode, JoinSpec
 from .core.predicates import Pred
 from .core.relation import Relation
+from .device import resolve_device
+from .models.transformer import param_dtype, param_entries
 
 # one join node: (alias, relation name, parent alias or None, edge attrs, kind)
 NodeTuple = Tuple[str, str, Optional[str], Sequence[str], str]
@@ -70,3 +77,27 @@ def workload_from_numpy(relations: Mapping[str, Mapping[str, np.ndarray]],
     sizes = pieces if join_sizes is None else {n: float(join_sizes[n])
                                                 for n in order}
     return cat, specs, Cover(order, pieces, sizes)
+
+
+def params_from_numpy(cfg, params: Mapping[str, np.ndarray], device=None,
+                      dtype=None) -> Dict[str, torch.Tensor]:
+    """The port's parameters (``repro_torch.models``) from the reference's
+    dict of numpy arrays, on ``device`` (``None``: the card).  Every name
+    and shape of ``param_entries(cfg)`` must be there.  The weights are
+    stored in ``dtype`` (default ``cfg.compute_dtype``), every other
+    parameter (norms, gates) in float32: the reference casts each weight to
+    the activations' dtype at every use and each norm scale to float32, so
+    with the default these are exactly the values it computes with."""
+    dev = resolve_device(device)
+    out = {}
+    for name, (shape, _) in param_entries(cfg).items():
+        arr = np.asarray(params[name])
+        if arr.shape != tuple(shape):
+            raise ValueError(f"params_from_numpy: {name} has shape "
+                             f"{arr.shape}, the config needs {tuple(shape)}")
+        dt = param_dtype(cfg, name, shape)
+        if dtype is not None and dt != torch.float32:
+            dt = dtype
+        out[name] = torch.tensor(arr, dtype=torch.float32).to(device=dev,
+                                                              dtype=dt)
+    return out

@@ -11,11 +11,12 @@ Replaces the Pallas kernel ``repro/kernels/attention.py::decode_attn_kernel``.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernels of ``csrc/attention.cu`` on the current
-stream (D in {64, 128, 256}, at most 8 query heads per KV head) or raises.
-Each call adds the kernels it launched (2: the plan, which cuts the kept
-rows of every (b, kv head) pair into one balanced run of tiles per CTA on
-the device, then the attention kernel, which also merges the pairs that
-span CTAs) to ``build.launch_counts["decode_attention"]``.
+stream (D in {16, 64, 112, 128, 256}, 1 to 48 query heads per KV head) or
+raises.  Each call adds the kernels it launched (2: the plan, which cuts
+the kept rows of every work item, a (b, kv head) pair and at most 8 of its
+query heads, into one balanced run of tiles per CTA on the device, then
+the attention kernel, which also merges the items that span CTAs) to
+``build.launch_counts["decode_attention"]``.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 from .build import launch, load, stream
 
 MASKED = -1e30      # the reference's masked logit
-KERNEL_HEAD_DIMS = (64, 128, 256)
-KERNEL_MAX_GROUP = 8
+KERNEL_HEAD_DIMS = (16, 64, 112, 128, 256)
+KERNEL_MAX_GROUP = 48
 
 
 def _check(q, k, v, lengths) -> None:

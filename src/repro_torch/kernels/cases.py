@@ -287,6 +287,28 @@ ATTENTION_CASES = [f"shape_{i}" for i in range(len(ATTENTION_SHAPES))] + [
     "all_zero_lengths"]
 
 
+def config_attention_shapes() -> List[Tuple[int, int, int]]:
+    """(H, KVH, D) of every config with attention and of its smoke config
+    (:mod:`repro_torch.configs`), sorted: every shape the LM path can give
+    decode attention."""
+    from ..configs import ASSIGNED_ARCHS, get_config, get_smoke_config
+    shapes = {(c.n_heads, c.n_kv_heads, c.head_dim)
+              for a in ASSIGNED_ARCHS + ["unionlm-100m"]
+              for c in (get_config(a), get_smoke_config(a)) if c.n_heads > 0}
+    return sorted(shapes)
+
+
+# each config shape twice, in f32 (window 0, softcap 0) and in bf16 (window
+# 48, softcap 30); query heads mapped to their KV head at G 12 and G 48,
+# where a KV head's heads are cut into several work items of the card's
+# kernel; and many (b, kv head) pairs at G 48
+ATTENTION_CONFIG_CASES = [
+    f"config_{h}_{kv}_{d}{sfx}" for h, kv, d in config_attention_shapes()
+    for sfx in ("", "_bf16")] + [
+    "head_mapping_g12", "head_mapping_g48", "many_pairs_g48"]
+ATTENTION_CASES += ATTENTION_CONFIG_CASES
+
+
 def attention_inputs(B: int, H: int, KVH: int, D: int, S: int, seed: int):
     """float32 q, k, v and lengths in [S // 2, S], drawn as the reference's
     tests draw them."""
@@ -318,16 +340,25 @@ def attention_case(name: str) -> dict:
         q, k, v, lens = attention_inputs(2, 4, 2, 256, 300, 12)
         lens[:] = [5, 40]
         c["window"] = 64
-    elif name == "head_mapping":
+    elif name.startswith("config_"):
+        H, KVH, D = (int(x) for x in name.split("_")[1:4])
+        q, k, v, lens = attention_inputs(3, H, KVH, D, 200, H * 1000 + D)
+        if name.endswith("_bf16"):
+            c.update(dtype=torch.bfloat16, window=48, softcap=30.0)
+    elif name == "many_pairs_g48":
+        q, k, v, lens = attention_inputs(40, 96, 2, 128, 40, 17)
+    elif name.startswith("head_mapping"):
         # KV head j's values are all j + 1, so query head h must return
         # h // G + 1 (not h % KVH + 1)
-        B, H, KVH, D, S = 1, 8, 4, 64, 40
+        B, H, KVH, D, S = {"head_mapping": (1, 8, 4, 64, 40),
+                           "head_mapping_g12": (2, 36, 3, 112, 40),
+                           "head_mapping_g48": (2, 96, 2, 16, 40)}[name]
         rng = np.random.default_rng(7)
         q = rng.standard_normal((B, H, D)).astype(np.float32)
         k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
         v = np.broadcast_to(np.arange(1, KVH + 1, dtype=np.float32)
                             [None, None, :, None], (B, S, KVH, D)).copy()
-        lens = np.array([S])
+        lens = np.full(B, S)
         c["heads"] = np.repeat(np.arange(1, KVH + 1), H // KVH)
     elif name.startswith("softcap_range"):
         # logits of std softcap / 2, where tanh bends them: a kernel that
@@ -353,3 +384,46 @@ def attention_case(name: str) -> dict:
         raise KeyError(name)
     c.update(q=q, k=k, v=v, lens=lens)
     return c
+
+
+# ---------------------------------------------------------------------------
+# decode steps through B4 against the same steps through the plain version
+# ---------------------------------------------------------------------------
+
+# bf16 logits of the same decode_step sequence (same parameters, the same
+# tokens at every step) with decode attention through the kernel and
+# through decode_attention_plain: the two differ only in the attention's
+# summation order, rounded to bf16 (at most one ulp an element), which the
+# layers carry to the logits.  Calibrated before any card run on the CPU,
+# on random 32- and 42-layer bf16 models whose attention outputs were given
+# one-ulp flips: at most 2.4-3.5 % of the largest logit, correlation >=
+# 0.9997, greedy agreement 0.94-0.96.  The limits leave room for the full
+# widths: correlation > 0.999, the largest difference at most 10 % of the
+# largest logit, and greedy (argmax) agreement >= 0.5, as the reference's
+# decode-against-prefill bar.
+LM_PATH_CORR, LM_PATH_REL, LM_PATH_AGREE = 0.999, 0.10, 0.5
+
+
+def lm_logits_agreement(got: torch.Tensor, want: torch.Tensor,
+                        what: str = "logits") -> Dict[str, float]:
+    """``{"corr", "rel", "agree"}`` of two (steps, B, vocab) stacks of
+    float32 logits, each step held to the ``LM_PATH_*`` limits (raises
+    ``AssertionError`` naming the step)."""
+    out = {"corr": 1.0, "rel": 0.0, "agree": 0.0}
+    agree = []
+    for t, (g, w) in enumerate(zip(got.double(), want.double())):
+        corr = float(torch.corrcoef(torch.stack([g.ravel(), w.ravel()]))[0, 1])
+        rel = float((g - w).abs().max() / w.abs().max())
+        if not (corr > LM_PATH_CORR and rel <= LM_PATH_REL):
+            raise AssertionError(f"{what} step {t}: correlation {corr}, "
+                                 f"largest difference {rel} of the largest "
+                                 f"logit (limits > {LM_PATH_CORR}, <= "
+                                 f"{LM_PATH_REL})")
+        out["corr"] = min(out["corr"], corr)
+        out["rel"] = max(out["rel"], rel)
+        agree.append((g.argmax(-1) == w.argmax(-1)).double())
+    out["agree"] = float(torch.cat(agree).mean())
+    if out["agree"] < LM_PATH_AGREE:
+        raise AssertionError(f"{what}: greedy agreement {out['agree']} < "
+                             f"{LM_PATH_AGREE}")
+    return out

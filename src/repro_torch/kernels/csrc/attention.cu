@@ -6,7 +6,7 @@
 // (q . k) * scale, optionally softcap * tanh(logits / softcap), masked to
 // s < length (and s >= length - window when window > 0), an fp32 online
 // softmax, and the output acc / max(l, 1e-30) in q's dtype.  f32 or bf16;
-// D in {64, 128, 256}; G <= 8; any S.
+// D in {16, 64, 112, 128, 256}; G from 1 to 48; any S.
 //
 // What bounds it on the H100: bytes.  Every kept K and V row is read once
 // and feeds 4 * G * D flops, about G flops per byte in bf16, far below the
@@ -14,8 +14,19 @@
 // gemma-2-9b's widths (B 8, S 8192, KVH 8, D 256, bf16) K and V are 537 MB.
 //
 // What the design does about it:
+// * Work items of at most 8 query heads.  A KV head's G query heads are
+//   cut into C = ceil(G / 8) chunks of floor or ceil of G / C heads, and a
+//   "pair" below is one (b, kv head, chunk) item: at G <= 8 one item per
+//   (b, kv head), at G 48 (MQA, granite-20b) six items of 8 heads.  Each
+//   item reads its K/V rows, so K/V are read C times; the (8, D) query tile
+//   keeps the per-lane state in registers at every G.
+// * Rows of any supported width.  In shared memory a row is padded to DP,
+//   the next multiple of 64 elements (16 -> 64, 112 -> 128): the copy
+//   zero-fills the pad (it reads no byte of it) and q's pad is zero, so the
+//   pad adds nothing to a logit and its output columns are not written.
+//   Global rows stay D wide (16 * sizeof(T) divides D * sizeof(T)).
 // * One wave of balanced work.  The kept rows [max(len - window, 0),
-//   min(len, S)) of every (b, kv head) pair are cut into tiles of kRows
+//   min(len, S)) of every pair are cut into tiles of kRows
 //   rows, and the tiles of all pairs, in pair order, form one sequence.  A
 //   plan kernel (one block) takes the prefix sum of the tile counts from
 //   `lengths` on the device, so there is no host sync, and the attention
@@ -28,8 +39,9 @@
 //   flight while the current one is computed, and the other CTA of the SM
 //   computes while this one waits.  Rows past the end of a pair are
 //   zero-filled by the copy and masked.
-// * Scores without a shuffle tree per row.  q (G x D, in its own dtype,
-//   so bf16 q reads half the bytes) sits in shared memory.  Eight lanes score one row (three shuffles per head), so a
+// * Scores without a shuffle tree per row.  The item's q heads (GM x DP,
+//   in q's own dtype, so bf16 q reads half the bytes) sit in shared
+//   memory.  Eight lanes score one row (three shuffles per head), so a
 //   warp scores four rows at once and keeps one online-softmax state for
 //   them per head: one max, one rescale and one exp per row and head, and
 //   P.V in fp32 FMA from the staged V tile.  The softcap's tanhf stays the
@@ -58,6 +70,32 @@ constexpr int kRowsPerWarp = kRows / kWarps;   // 4: eight lanes per row
 constexpr int kStages = 2;
 constexpr int kPlanThreads = 1024;
 constexpr float kNegInf = -1e30f;              // the reference's masked logit
+constexpr int kMaxItemHeads = 8;               // query heads per work item
+constexpr int kMaxGroup = 48;                  // query heads per KV head
+
+// The work items: (b, kv head, chunk) triples p = (b * KVH + kvh) * C + c,
+// where chunk c of a KV head's G query heads is [c * G / C, (c + 1) * G / C).
+struct Items {
+  int KVH, C, G;
+
+  __host__ __device__ static int chunks(int G) {
+    return (G + kMaxItemHeads - 1) / kMaxItemHeads;
+  }
+  // the most query heads of one item: ceil(G / C) <= 8
+  __host__ __device__ static int max_heads(int G) {
+    return (G + chunks(G) - 1) / chunks(G);
+  }
+  __device__ __forceinline__ int batch(int p) const { return p / (KVH * C); }
+  __device__ __forceinline__ int kv_head(int p) const { return (p / C) % KVH; }
+  // the item's first query head in the (B, H, D) layout of q, and its count
+  __device__ __forceinline__ int head0(int p) const {
+    return kv_head(p) * G + (p % C) * G / C;
+  }
+  __device__ __forceinline__ int heads(int p) const {
+    const int c = p % C;
+    return (c + 1) * G / C - c * G / C;
+  }
+};
 
 template <int N>
 __device__ __forceinline__ void load_row(const float* __restrict__ p,
@@ -72,7 +110,7 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p,
       o[i + 3] = t.w;
     }
   } else {
-    static_assert(N == 2, "rows of 64, 128 or 256 elements");
+    static_assert(N == 2, "padded rows of 64, 128 or 256 elements");
     const float2 t = *reinterpret_cast<const float2*>(p);
     o[0] = t.x;
     o[1] = t.y;
@@ -101,7 +139,7 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
       o[2 * j + 1] = f.y;
     }
   } else {
-    static_assert(N == 2, "rows of 64, 128 or 256 elements");
+    static_assert(N == 2, "padded rows of 64, 128 or 256 elements");
     const float2 f = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(p));
     o[0] = f.x;
@@ -171,7 +209,7 @@ __device__ long long block_scan(long long v, long long* sh, long long& total) {
   return pre;
 }
 
-// The plan (one block): for the NP = B * KVH pairs p = b * KVH + kvh,
+// The plan (one block): for the NP work items p (pairs, see Items),
 // tile_start[p] = tiles of the pairs before p (tile_start[NP] = all tiles),
 // tiles per CTA, and seg_start[p] = partial slots of the pairs before p,
 // where a pair owns one slot for each CTA that covers part of it.  Zeroes
@@ -179,7 +217,7 @@ __device__ long long block_scan(long long v, long long* sh, long long& total) {
 template <typename T>
 __global__ void __launch_bounds__(kPlanThreads)
 decode_attn_plan_kernel(const int* __restrict__ lengths, int NP, int S,
-                        int KVH, int H, int G, int D, int window, int ctas,
+                        Items items, int H, int D, int window, int ctas,
                         long long* __restrict__ tile_start,
                         int* __restrict__ seg_start, int* __restrict__ count,
                         long long* __restrict__ meta, T* __restrict__ out) {
@@ -190,12 +228,13 @@ decode_attn_plan_kernel(const int* __restrict__ lengths, int NP, int S,
     long long tiles = 0;
     if (p < NP) {
       int lo, hi;
-      kept_rows(lengths, p / KVH, S, window, lo, hi);
+      kept_rows(lengths, items.batch(p), S, window, lo, hi);
       tiles = hi > lo ? (hi - lo + kRows - 1) / kRows : 0;
       count[p] = 0;
       if (tiles == 0) {
-        T* o = out + (static_cast<size_t>(p / KVH) * H + (p % KVH) * G) * D;
-        for (int i = 0; i < G * D; ++i) store(o + i, 0.f);
+        T* o = out + (static_cast<size_t>(items.batch(p)) * H
+                      + items.head0(p)) * D;
+        for (int i = 0; i < items.heads(p) * D; ++i) store(o + i, 0.f);
       }
     }
     const long long pre = block_scan(tiles, sh, total);
@@ -228,34 +267,42 @@ decode_attn_plan_kernel(const int* __restrict__ lengths, int NP, int S,
 template <typename T, int D>
 struct Shape {
   static constexpr int E = 16 / static_cast<int>(sizeof(T));  // per chunk
-  static constexpr int CH = D / E;            // 16-byte chunks per row, >= 8
-  static constexpr int TILE = kRows * D;      // elements of a K or V tile
-  static constexpr int N = D / 32;            // elements per lane in P.V
+  static constexpr int DP = (D + 63) / 64 * 64;  // a row in shared memory
+  static constexpr int CH = DP / E;           // 16-byte chunks per padded row
+  static constexpr int CR = D / E;            // ... of them holding the row
+  static constexpr int TILE = kRows * DP;     // elements of a K or V tile
+  static constexpr int N = DP / 32;           // elements per lane in P.V
+  static_assert(D % E == 0, "rows of whole 16-byte chunks");
+  static_assert(CH % 8 == 0, "eight lanes score a row");
 };
 
 template <typename T, int D, int GM>
 constexpr int smem_bytes() {
-  return static_cast<int>(kStages * 2 * Shape<T, D>::TILE * sizeof(T)
-                          + GM * D * sizeof(T) + kWarps * (D + 2) * sizeof(float)
-                          + 16);
+  using Sh = Shape<T, D>;
+  return static_cast<int>(kStages * 2 * Sh::TILE * sizeof(T)
+                          + GM * Sh::DP * sizeof(T)
+                          + kWarps * (Sh::DP + 2) * sizeof(float) + 16);
 }
 
 // Where a CTA stands in its run of tiles: global tile t of pair p, whose
 // tiles are [first, end) and whose kept rows are [lo, hi).
 struct Cursor {
   long long t, first, end;
-  int p, lo, hi;
+  int p, lo, hi, b, kvh;    // b and kv head of pair p, set on entering it
 };
 
 struct Plan {
   const int* lengths;
   const long long* tile_start;
-  int S, KVH, window;
+  int S, window;
+  Items items;
 
   __device__ __forceinline__ void enter(Cursor& c) const {
     c.first = tile_start[c.p];
     c.end = tile_start[c.p + 1];
-    kept_rows(lengths, c.p / KVH, S, window, c.lo, c.hi);
+    c.b = items.batch(c.p);
+    c.kvh = items.kv_head(c.p);
+    kept_rows(lengths, c.b, S, window, c.lo, c.hi);
   }
   // the next tile; past t1 the cursor is left as it is
   __device__ __forceinline__ void advance(Cursor& c, long long t1) const {
@@ -268,17 +315,18 @@ struct Plan {
 };
 
 // The K and V rows of the cursor's tile into one ring stage (K tile, then
-// V tile, kRows x D each); rows past the pair's end are zero-filled.
+// V tile, kRows x DP each); rows past the pair's end and each row's pad
+// past D are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* stage, const Cursor& c,
                                           const T* __restrict__ k,
-                                          const T* __restrict__ v, int S,
-                                          int KVH) {
+                                          const T* __restrict__ v,
+                                          const Plan& plan) {
   using Sh = Shape<T, D>;
   const int row0 = c.lo + static_cast<int>(c.t - c.first) * kRows;
-  const size_t stride = static_cast<size_t>(KVH) * D;
-  const size_t base = (static_cast<size_t>(c.p / KVH) * S + row0) * stride
-                      + static_cast<size_t>(c.p % KVH) * D;
+  const size_t stride = static_cast<size_t>(plan.items.KVH) * D;
+  const size_t base = (static_cast<size_t>(c.b) * plan.S + row0) * stride
+                      + static_cast<size_t>(c.kvh) * D;
   static_assert(2 * kRows * Sh::CH % kThreads == 0, "whole rounds");
 #pragma unroll
   for (int it = 0; it < 2 * kRows * Sh::CH / kThreads; ++it) {
@@ -287,8 +335,8 @@ __device__ __forceinline__ void load_tile(T* stage, const Cursor& c,
     const int j = i - which * kRows * Sh::CH;
     const int r = j / Sh::CH, ch = j - r * Sh::CH;
     const T* src = which ? v : k;
-    const bool ok = row0 + r < c.hi;
-    cp_async16(stage + which * Sh::TILE + r * D + ch * Sh::E,
+    const bool ok = row0 + r < c.hi && ch < Sh::CR;
+    cp_async16(stage + which * Sh::TILE + r * Sh::DP + ch * Sh::E,
                ok ? src + base + r * stride + ch * Sh::E : src, ok);
   }
 }
@@ -298,7 +346,7 @@ __device__ __forceinline__ void load_tile(T* stage, const Cursor& c,
 template <typename T, int D, int GM>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, Plan plan, int NP, int H, int G,
+                   const T* __restrict__ v, Plan plan, int NP, int H,
                    float scale, float softcap,
                    const int* __restrict__ seg_start, int* __restrict__ count,
                    const long long* __restrict__ meta,
@@ -307,11 +355,13 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using Sh = Shape<T, D>;
   constexpr int N = Sh::N;
   constexpr int E = Sh::E;
+  constexpr int DP = Sh::DP;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   T* qs = ring + kStages * 2 * Sh::TILE;    // q of the pair, in its dtype
-  float* mb = reinterpret_cast<float*>(qs + GM * D);  // warps' states
-  int* last = reinterpret_cast<int*>(mb + kWarps * (D + 2));
+  float* mb = reinterpret_cast<float*>(qs + GM * DP);  // warps' states
+  int* last = reinterpret_cast<int*>(mb + kWarps * (DP + 2));
+  const int GI = Items::max_heads(plan.items.G);  // partial slots' heads
 
   const long long n_tiles = meta[0], per_cta = meta[1];
   const long long t0 = static_cast<long long>(blockIdx.x) * per_cta;
@@ -335,6 +385,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = warp * kRowsPerWarp + (lane >> 3);  // the row it scores
   const int part = lane & 7;                          // its eighth of it
   const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  int b = 0, h0 = 0, nh = 0;   // the current pair's batch row and heads
   float m[GM], l[GM], acc[GM][N];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -347,7 +398,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n) {
-      load_tile<T, D>(ring + s * 2 * Sh::TILE, ld, k, v, plan.S, plan.KVH);
+      load_tile<T, D>(ring + s * 2 * Sh::TILE, ld, k, v, plan);
       plan.advance(ld, t1);
     }
     cp_async_commit();
@@ -357,17 +408,20 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();            // tile i has landed; stage i - 1 is free
     if (i + kStages - 1 < n) {
       load_tile<T, D>(ring + ((i + kStages - 1) % kStages) * 2 * Sh::TILE,
-                      ld, k, v, plan.S, plan.KVH);
+                      ld, k, v, plan);
       plan.advance(ld, t1);
     }
     cp_async_commit();
-    const int b = cur.p / plan.KVH, kvh = cur.p % plan.KVH;
     if (i == 0 || cur.t == cur.first) {       // a new pair: its q heads
-      for (int j = tid; j < GM * D; j += kThreads) {
-        const int g = j / D;
-        store(qs + j, g < G ? to_float(q[(static_cast<size_t>(b) * H
-                                          + kvh * G + g) * D + (j - g * D)])
-                            : 0.f);
+      b = cur.b;
+      h0 = plan.items.head0(cur.p);
+      nh = plan.items.heads(cur.p);
+      for (int j = tid; j < GM * DP; j += kThreads) {
+        const int g = j / DP, d = j - g * DP;
+        store(qs + j, g < nh && d < D
+                          ? to_float(q[(static_cast<size_t>(b) * H + h0 + g)
+                                       * D + d])
+                          : 0.f);
       }
       __syncthreads();
     }
@@ -385,11 +439,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < Sh::CH / 8; ++j) {
       const int c = part + 8 * j;
       float kf[E];
-      load_row<E>(ks + row * D + c * E, kf);
+      load_row<E>(ks + row * DP + c * E, kf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float qf[E];
-        load_row<E>(qs + g * D + c * E, qf);
+        load_row<E>(qs + g * DP + c * E, qf);
 #pragma unroll
         for (int e = 0; e < E; ++e) x[g] = __fmaf_rn(qf[e], kf[e], x[g]);
       }
@@ -428,7 +482,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       float vf[N];
-      load_row<N>(vs + (warp * kRowsPerWarp + r) * D + lane * N, vf);
+      load_row<N>(vs + (warp * kRowsPerWarp + r) * DP + lane * N, vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
 #pragma unroll
@@ -444,33 +498,33 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long long cta0 = cur.first / per_cta;
       const int slots = static_cast<int>((cur.end - 1) / per_cta - cta0 + 1);
       const int slot = seg_start[cur.p] + static_cast<int>(blockIdx.x - cta0);
-      const size_t bh0 = static_cast<size_t>(b) * H + kvh * G;
+      const size_t bh0 = static_cast<size_t>(b) * H + h0;
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g >= G) break;
-        float* w = mb + warp * (D + 2);
+        if (g >= nh) break;
+        float* w = mb + warp * (DP + 2);
 #pragma unroll
         for (int e = 0; e < N; ++e) w[lane * N + e] = acc[g][e];
         if (lane == 0) {
-          w[D] = m[g];
-          w[D + 1] = l[g];
+          w[DP] = m[g];
+          w[DP + 1] = l[g];
         }
         __syncthreads();
         if (tid < D) {
           float M = kNegInf;
 #pragma unroll
-          for (int j = 0; j < kWarps; ++j) M = fmaxf(M, mb[j * (D + 2) + D]);
+          for (int j = 0; j < kWarps; ++j) M = fmaxf(M, mb[j * (DP + 2) + DP]);
           float L = 0.f, A = 0.f;
 #pragma unroll
           for (int j = 0; j < kWarps; ++j) {
-            const float s = expf(mb[j * (D + 2) + D] - M);
-            L = __fmaf_rn(mb[j * (D + 2) + D + 1], s, L);
-            A = __fmaf_rn(mb[j * (D + 2) + tid], s, A);
+            const float s = expf(mb[j * (DP + 2) + DP] - M);
+            L = __fmaf_rn(mb[j * (DP + 2) + DP + 1], s, L);
+            A = __fmaf_rn(mb[j * (DP + 2) + tid], s, A);
           }
           if (slots == 1) {
             store(out + (bh0 + g) * D + tid, A / fmaxf(L, 1e-30f));
           } else {
-            const size_t ps = static_cast<size_t>(slot) * G + g;
+            const size_t ps = static_cast<size_t>(slot) * GI + g;
             part_acc[ps * D + tid] = A;
             if (tid == 0) {
               part_ml[ps * 2] = M;
@@ -496,15 +550,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (*last) {
           __threadfence();
           const size_t s0 = static_cast<size_t>(seg_start[cur.p]);
-          for (int j = tid; j < G * D; j += kThreads) {
+          for (int j = tid; j < nh * D; j += kThreads) {
             const int g = j / D, d = j - g * D;
             float M = kNegInf;
             for (int s = 0; s < slots; ++s) {
-              M = fmaxf(M, __ldcg(part_ml + ((s0 + s) * G + g) * 2));
+              M = fmaxf(M, __ldcg(part_ml + ((s0 + s) * GI + g) * 2));
             }
             float L = 0.f, A = 0.f;
             for (int s = 0; s < slots; ++s) {
-              const size_t ps = (s0 + s) * G + g;
+              const size_t ps = (s0 + s) * GI + g;
               const float w = expf(__ldcg(part_ml + ps * 2) - M);
               L = __fmaf_rn(__ldcg(part_ml + ps * 2 + 1), w, L);
               A = __fmaf_rn(__ldcg(part_acc + ps * D + d), w, A);
@@ -519,11 +573,13 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Byte offsets of the scratch: the plan's arrays and the partial slots
-// (at most one per CTA plus one per pair).
+// (at most one per CTA plus one per pair), each of max_heads(G) heads.
 struct Layout {
   long long tile_start, meta, acc, ml, seg_start, count, bytes;
   Layout(long long B, long long H, long long KVH, long long D, long long ctas) {
-    const long long NP = B * KVH, G = H / KVH, slots = ctas + NP;
+    const int g = static_cast<int>(H / KVH);
+    const long long NP = B * KVH * Items::chunks(g);
+    const long long G = Items::max_heads(g), slots = ctas + NP;
     auto up = [](long long x) { return (x + 15) / 16 * 16; };
     tile_start = 0;
     meta = up((NP + 1) * 8);
@@ -535,18 +591,22 @@ struct Layout {
   }
 };
 
-// Dispatch to the instantiation for D and the group size G.
+// Dispatch to the instantiation for D and the query heads of a work item
+// (GM >= Items::max_heads(G)).
 template <typename T, int D, typename F>
 int with_group(long long G, const F& f) {
-  if (G <= 1) return f.template run<T, D, 1>();
-  if (G <= 2) return f.template run<T, D, 2>();
-  if (G <= 4) return f.template run<T, D, 4>();
+  const int gi = Items::max_heads(static_cast<int>(G));
+  if (gi <= 1) return f.template run<T, D, 1>();
+  if (gi <= 2) return f.template run<T, D, 2>();
+  if (gi <= 4) return f.template run<T, D, 4>();
   return f.template run<T, D, 8>();
 }
 
 template <typename T, typename F>
 int with_kernel(long long D, long long G, const F& f) {
+  if (D == 16) return with_group<T, 16>(G, f);
   if (D == 64) return with_group<T, 64>(G, f);
+  if (D == 112) return with_group<T, 112>(G, f);
   if (D == 128) return with_group<T, 128>(G, f);
   return with_group<T, 256>(G, f);
 }
@@ -579,7 +639,7 @@ struct SmemQuery {
 struct Launch {
   const void *q, *k, *v;
   Plan plan;
-  int NP, H, G, ctas;
+  int NP, H, ctas;
   float scale, softcap;
   const int* seg_start;
   int* count;
@@ -597,7 +657,7 @@ struct Launch {
     if (err != cudaSuccess) return -static_cast<int>(err);
     decode_attn_kernel<T, D, GM><<<ctas, kThreads, bytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), plan, NP, H, G, scale, softcap, seg_start,
+        static_cast<const T*>(v), plan, NP, H, scale, softcap, seg_start,
         count, meta, acc, ml, static_cast<T*>(out));
     err = cudaGetLastError();
     return err == cudaSuccess ? 0 : -static_cast<int>(err);
@@ -607,9 +667,10 @@ struct Launch {
 bool valid_shape(long long B, long long H, long long S, long long KVH,
                  long long D) {
   return B > 0 && H > 0 && S >= 0 && KVH > 0 && H % KVH == 0
-         && H / KVH <= 8 && (D == 64 || D == 128 || D == 256)
-         && B * KVH <= (1LL << 24) && S <= (1LL << 30)
-         && B * S <= (1LL << 40);
+         && H / KVH <= kMaxGroup
+         && (D == 16 || D == 64 || D == 112 || D == 128 || D == 256)
+         && B * KVH * Items::chunks(static_cast<int>(H / KVH)) <= (1LL << 24)
+         && S <= (1LL << 30) && B * S <= (1LL << 40);
 }
 
 template <typename T>
@@ -629,18 +690,20 @@ int launch_decode_attention(const void* q, const void* k, const void* v,
   long long* meta = reinterpret_cast<long long*>(base + lay.meta);
   int* seg_start = reinterpret_cast<int*>(base + lay.seg_start);
   int* count = reinterpret_cast<int*>(base + lay.count);
-  const int NP = static_cast<int>(B * KVH), G = static_cast<int>(H / KVH);
-  const int s = static_cast<int>(S), kv = static_cast<int>(KVH);
+  const int G = static_cast<int>(H / KVH);
+  const Items items{static_cast<int>(KVH), Items::chunks(G), G};
+  const int NP = static_cast<int>(B * KVH) * items.C;
+  const int s = static_cast<int>(S);
   const int w = static_cast<int>(std::min(window, 1LL << 30));
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   decode_attn_plan_kernel<T><<<1, kPlanThreads, 0, st>>>(
-      len, NP, s, kv, static_cast<int>(H), G, static_cast<int>(D), w, ctas,
+      len, NP, s, items, static_cast<int>(H), static_cast<int>(D), w, ctas,
       tile_start, seg_start, count, meta, static_cast<T*>(out));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const Launch f{q, k, v, Plan{len, tile_start, s, kv, w}, NP,
-                 static_cast<int>(H), G, ctas, scale, softcap, seg_start,
+  const Launch f{q, k, v, Plan{len, tile_start, s, w, items}, NP,
+                 static_cast<int>(H), ctas, scale, softcap, seg_start,
                  count, meta, reinterpret_cast<float*>(base + lay.acc),
                  reinterpret_cast<float*>(base + lay.ml), out, st};
   const int rc = with_kernel<T>(D, G, f);

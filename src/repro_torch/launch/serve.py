@@ -1,14 +1,33 @@
-"""Union-sample serving CLI of the port.
+r"""Serving CLI of the port: LM decode (``--mode lm``, the default) and
+union samples (``--mode samples``), on the card unless ``--device cpu``.
+
+``--mode lm`` serves greedy decoding with continuous batching: a fixed pool
+of ``--slots`` decode slots, each holding one request of the queue
+(``--requests`` random prompts of 2-5 tokens from ``--seed``); a slot first
+consumes its prompt one token per step, then emits greedy tokens until
+``--max-new`` or ``--max-len`` - 1, and is refilled from the queue.  The
+model starts from random weights (``init_params(cfg, seed)``); ``--arch``
+takes the ids of :mod:`repro_torch.configs` (``dense`` and ``gemma2``
+families), ``--smoke`` its reduced config.  Every decode attention runs the
+B4 kernel on the card::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --smoke \
+        --arch minitron-8b --device cpu --requests 2 --max-new 4 --slots 2
+
+It prints the reference's two lines: requests served, decode steps,
+seconds, steps/s and the batch, then the first tokens of up to four
+requests.
 
 ``--mode samples`` serves uniform union samples through the streaming
 :class:`repro_torch.serve.SampleService` (prefetched sample queue + request
-batching) over the torch engine, on the card unless ``--device cpu``::
+batching) over the torch engine::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
         --workload UQ1 --requests 16 --samples 4096
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
         --device cpu --scale 0.05 --requests 2 --samples 256
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
         --workload UQ2 --plan adaptive
 
 ``--workload UQ2`` builds the §8.3 predicate workload in its default
@@ -46,8 +65,6 @@ collect::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode samples \
         --device cpu --scale 0.05 --requests 2 --samples 256 \
         --metrics-port 0 --linger 5
-
-The LM decode mode of the reference CLI is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,9 +72,83 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def serve_lm(cfg, params, *, slots: int = 4, requests: int = 8,
+             max_new: int = 16, max_len: int = 64, seed: int = 0,
+             device=None) -> Dict[str, object]:
+    """Greedy decoding of ``requests`` random prompts (2-5 tokens in
+    ``[4, vocab)`` from ``numpy.random.default_rng(seed)``) with continuous
+    batching over ``slots`` decode slots and caches of ``max_len``, as the
+    reference's ``--mode lm`` loop: a slot starts from BOS (1) at length 0,
+    consumes its prompt one token per step, then appends the ``argmax`` of
+    each step's float32 logits (the first maximum) until it has ``max_new``
+    tokens or its length reaches ``max_len - 1``, and is refilled from the
+    queue.  Prints the reference's two lines and returns ``{"done": [(id,
+    tokens)], "steps", "seconds", "steps_per_s", "tokens_per_s"}``
+    (tokens: the greedy tokens emitted)."""
+    import torch
+
+    from ..device import resolve_device
+    from ..models.serve import decode_step, init_cache
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    B = slots
+    cache = init_cache(cfg, B, max_len, device=dev)
+    # request queue: (request_id, prompt tokens)
+    queue: List = [(i, rng.integers(4, cfg.vocab, rng.integers(2, 6)).tolist())
+                   for i in range(requests)]
+    state: List = [None] * B    # (req_id, tokens emitted, remaining prompt)
+    lengths = np.zeros(B, np.int64)
+    current = np.full(B, 1, np.int64)   # BOS
+    done: List = []
+    emitted = 0
+
+    def refill():
+        for b in range(B):
+            if state[b] is None and queue:
+                rid, prompt = queue.pop(0)
+                state[b] = [rid, [], list(prompt)]
+                lengths[b] = 0
+                current[b] = 1
+
+    t0 = time.time()
+    steps = 0
+    refill()
+    while any(st is not None for st in state):
+        toks = torch.as_tensor(current.reshape(B, 1), dtype=torch.int32,
+                               device=dev)
+        lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        cache, logits = decode_step(params, cfg, cache, toks, lens)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        steps += 1
+        for b in range(B):
+            if state[b] is None:
+                continue
+            rid, out, prompt = state[b]
+            lengths[b] += 1
+            if prompt:                       # still consuming the prompt
+                current[b] = prompt.pop(0)
+            else:
+                out.append(int(nxt[b]))
+                emitted += 1
+                current[b] = int(nxt[b])
+                if len(out) >= max_new or lengths[b] >= max_len - 1:
+                    done.append((rid, out))
+                    state[b] = None
+        refill()
+    dt = time.time() - t0
+    print(f"served {len(done)} requests, {steps} decode steps in {dt:.1f}s "
+          f"({steps/max(dt,1e-9):.1f} steps/s, batch={B})", flush=True)
+    for rid, out in sorted(done)[:4]:
+        print(f"  req {rid}: {out[:10]}", flush=True)
+    return {"done": sorted(done), "steps": steps, "seconds": dt,
+            "steps_per_s": steps / max(dt, 1e-9),
+            "tokens_per_s": emitted / max(dt, 1e-9)}
 
 
 def build_sampler(workload: str, scale: float, seed: int = 0, device=None,
@@ -144,7 +235,13 @@ def serve(sampler, requests: int, samples: int, batch: int,
 
 def main(argv: Optional[list] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("samples",), default="samples")
+    ap.add_argument("--mode", choices=("lm", "samples"), default="lm")
+    ap.add_argument("--arch", default="minitron-8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    # samples mode
     ap.add_argument("--workload", default="UQ1",
                     choices=("UQ1", "UQ2", "UQ3", "UQ4"))
     ap.add_argument("--scale", type=float, default=0.1)
@@ -174,6 +271,17 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
                     help="keep the service + /metrics up this many seconds "
                          "after the request loop (for external scrapers)")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        from ..configs import get_config, get_smoke_config
+        from ..device import resolve_device
+        from ..models.transformer import init_params
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+            args.arch)
+        dev = resolve_device(args.device)
+        params = init_params(cfg, seed=args.seed, device=dev)
+        return serve_lm(cfg, params, slots=args.slots,
+                        requests=args.requests, max_new=args.max_new,
+                        max_len=args.max_len, seed=args.seed, device=dev)
     rank = 0
     if args.shards > 1:
         rank = _init_ranks(args.device)

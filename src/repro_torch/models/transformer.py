@@ -1,0 +1,353 @@
+"""Model assembly of the port: ``ModelConfig``, parameter shapes and the
+forward pass for inference.
+
+The port's copy of the reference's ``repro/models/transformer.py``.
+``ModelConfig``, :func:`param_entries` and :func:`logical_axes` cover every
+family (the config modules of :mod:`repro_torch.configs` need them); the
+forward pass runs the ``dense`` and ``gemma2`` families:
+
+* ``dense``  — pre-norm GQA transformer (minitron / granite / mistral-large
+               / unionlm)
+* ``gemma2`` — alternating local (sliding-window, even layers) and global
+               (odd layers) attention, logit softcaps, pre+post sublayer
+               norms, embedding scaling
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item.
+Parameters are a plain dict under the reference's names (``blocks.wq`` …)
+with the stacked ``(L, …)`` layout; where the reference scans over layers
+the port loops over views ``p[l]`` of the stacked tensors.  The reference's
+sharding constraints are no-ops without a mesh and are left out until
+model sharding is ported (ROADMAP §A 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .layers import fit_chunk, flash_attention_cv, rms_norm, rope, swiglu
+from .moe import MoEDims, moe_param_shapes
+from .ssm import SSMDims, ssm_param_shapes
+
+def require_family(cfg: "ModelConfig", what: str) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not run
+    yet: moe, mamba2, zamba2, encdec and vlm are queued as ROADMAP §A 6."""
+    if cfg.family not in ("dense", "gemma2"):
+        raise NotImplementedError(
+            f"{what}: family {cfg.family!r} is not ported yet (ROADMAP §A 6)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10000.0
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    window: int = 0
+    n_experts: int = 0
+    top_k: int = 0
+    moe_dff: int = 0
+    moe_capacity_factor: float = 1.25
+    dense_residual: bool = False
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    mamba_per_attn: int = 0
+    frontend: str = "none"            # "none" | "audio" | "patch"
+    n_frontend_tokens: int = 0
+    encdec: bool = False
+    n_enc_layers: int = 0
+    prefix_len: int = 0
+    embed_scale: bool = False
+    remat: bool = True
+    q_chunk: int = 256
+    kv_chunk: int = 512
+    ssd_chunk: int = 128
+    loss_chunk: int = 512
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("mamba2", "zamba2", "gemma2")
+
+    @property
+    def ssm_dims(self) -> SSMDims:
+        d_inner = 2 * self.d_model
+        return SSMDims(self.d_model, d_inner, d_inner // self.ssm_headdim,
+                       self.ssm_headdim, self.ssm_state)
+
+    @property
+    def moe_dims(self) -> MoEDims:
+        return MoEDims(self.d_model, self.n_experts, self.top_k, self.moe_dff,
+                       self.moe_capacity_factor)
+
+    @property
+    def n_zamba_groups(self) -> int:
+        return self.n_layers // (self.mamba_per_attn + 1)
+
+    @property
+    def n_zamba_tail(self) -> int:
+        return self.n_layers - self.n_zamba_groups * (self.mamba_per_attn + 1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter shapes / logical sharding axes
+# ---------------------------------------------------------------------------
+
+Entries = Dict[str, Tuple[Tuple[int, ...], Tuple[Optional[str], ...]]]
+
+_SSM_AXES = {"norm": ("embed",), "in_proj": ("embed", "mlp"),
+             "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+             "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+             "out_norm": ("mlp",), "out_proj": ("mlp", "embed")}
+
+
+def _attn_shapes(cfg: ModelConfig) -> Entries:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "ln1": ((d,), ("embed",)),
+        "wq": ((d, H * hd), ("embed", "heads")),
+        "wkv": ((d, 2 * KV * hd), ("embed", "heads")),
+        "wo": ((H * hd, d), ("heads", "embed")),
+    }
+
+
+def _mlp_shapes(cfg: ModelConfig, ff: Optional[int] = None) -> Entries:
+    d = cfg.d_model
+    f = ff if ff is not None else cfg.d_ff
+    return {
+        "ln2": ((d,), ("embed",)),
+        "w_gate": ((d, f), ("embed", "mlp")),
+        "w_up": ((d, f), ("embed", "mlp")),
+        "w_down": ((f, d), ("mlp", "embed")),
+    }
+
+
+def _block_shapes(cfg: ModelConfig) -> Entries:
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+    if fam == "gemma2":
+        out = {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+        out["ln1_post"] = ((cfg.d_model,), ("embed",))
+        out["ln2_post"] = ((cfg.d_model,), ("embed",))
+        return out
+    if fam == "moe":
+        out = {**_attn_shapes(cfg)}
+        out["ln2"] = ((cfg.d_model,), ("embed",))
+        for k, shp in moe_param_shapes(cfg.moe_dims).items():
+            ax = {"router": ("embed", "experts"),
+                  "w_gate": ("experts", "embed", "mlp"),
+                  "w_up": ("experts", "embed", "mlp"),
+                  "w_down": ("experts", "mlp", "embed")}[k]
+            out[f"moe_{k}"] = (shp, ax)
+        if cfg.dense_residual:
+            for k, (shp, ax) in _mlp_shapes(cfg, cfg.d_ff).items():
+                out[f"res_{k}"] = (shp, ax)
+        return out
+    if fam == "mamba2":
+        return {k: (shp, _SSM_AXES[k])
+                for k, shp in ssm_param_shapes(cfg.ssm_dims).items()}
+    if fam == "encdec":
+        out = {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+        # cross attention (decoder only; encoder stack ignores these)
+        out["lnx"] = ((cfg.d_model,), ("embed",))
+        out["xq"] = ((cfg.d_model, cfg.n_heads * cfg.head_dim), ("embed", "heads"))
+        out["xkv"] = ((cfg.d_model, 2 * cfg.n_kv_heads * cfg.head_dim), ("embed", "heads"))
+        out["xo"] = ((cfg.n_heads * cfg.head_dim, cfg.d_model), ("heads", "embed"))
+        return out
+    raise ValueError(fam)
+
+
+def _stack(shapes: Entries, n: int) -> Entries:
+    return {k: ((n,) + shp, ("layer",) + tuple(ax))
+            for k, (shp, ax) in shapes.items()}
+
+
+def param_entries(cfg: ModelConfig) -> Entries:
+    """name -> (shape, logical axes) for every parameter."""
+    d = cfg.d_model
+    out: Entries = {
+        "embed": ((cfg.vocab, d), ("vocab", "embed")),
+        "final_norm": ((d,), ("embed",)),
+    }
+    fam = cfg.family
+    if fam == "zamba2":
+        ssm = {k: (shp, _SSM_AXES[k])
+               for k, shp in ssm_param_shapes(cfg.ssm_dims).items()}
+        G, P = cfg.n_zamba_groups, cfg.mamba_per_attn
+        for k, (shp, ax) in ssm.items():
+            out[f"blocks.{k}"] = ((G, P) + shp, ("layer", None) + ax)
+        for k, (shp, ax) in ssm.items():
+            out[f"tail.{k}"] = ((max(cfg.n_zamba_tail, 1),) + shp, ("layer",) + ax)
+        shared = {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+        for k, (shp, ax) in shared.items():
+            out[f"shared.{k}"] = (shp, ax)
+        out["gate"] = ((G, d), ("layer", "embed"))
+        return out
+    if fam == "encdec":
+        for k, (shp, ax) in _stack(_block_shapes(cfg), cfg.n_layers).items():
+            out[f"dec.{k}"] = (shp, ax)
+        enc_blk = {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+        for k, (shp, ax) in _stack(enc_blk, cfg.n_enc_layers).items():
+            out[f"enc.{k}"] = (shp, ax)
+        out["enc_final_norm"] = ((d,), ("embed",))
+        return out
+    for k, (shp, ax) in _stack(_block_shapes(cfg), cfg.n_layers).items():
+        out[f"blocks.{k}"] = (shp, ax)
+    return out
+
+
+def logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {k: ax for k, (shp, ax) in param_entries(cfg).items()}
+
+
+def init_law(name: str, shape: Tuple[int, ...]) -> str:
+    """The reference's initial law of a parameter (``init_params``):
+    ``"zeros"`` (norms, gates, D, dt_bias, conv_b), ``"log_uniform"``
+    (A_log: log U(1, 16)) or ``"normal"`` (N(0, 1) / sqrt(fan_in))."""
+    if (any(t in name for t in ("ln", "norm", "gate")) and len(shape) <= 2
+            and "w_" not in name):
+        return "zeros"
+    if name.endswith("A_log"):
+        return "log_uniform"
+    if name.endswith(("D", "dt_bias", "conv_b")):
+        return "zeros"
+    return "normal"
+
+
+def param_dtype(cfg: ModelConfig, name: str, shape: Tuple[int, ...]
+                ) -> torch.dtype:
+    """The dtype the port stores a parameter in: the weights (the normal
+    law) in ``cfg.compute_dtype``, every other parameter in float32.  The
+    reference keeps float32 masters and casts each weight to the
+    activations' dtype at every use (``.astype(x.dtype)``) and each norm
+    scale to float32, so storing the cast gives exactly its values."""
+    return cfg.compute_dtype if init_law(name, shape) == "normal" \
+        else torch.float32
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None
+                ) -> Dict[str, torch.Tensor]:
+    """Random parameters on ``device`` (``None``: the card) from a
+    ``torch.Generator`` seeded with ``seed``, under the reference's law:
+    N(0, 1)/sqrt(fan_in) for the weights (``fan_in`` the second-to-last
+    dimension), zeros for norms and gates, log U(1, 16) for ``A_log``.
+
+    The values are not the reference's: its numpy stream would take about
+    9·10⁹ float64 draws on the host at full width, too slow for a smoke run
+    (tests feed both packages the same numpy parameters through
+    :func:`repro_torch.interop.params_from_numpy` instead).  Weights are
+    drawn per layer in float32 and stored in :func:`param_dtype`, so no
+    float32 copy of a model stays beside its bf16 weights."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for k, (shp, _) in param_entries(cfg).items():
+        law = init_law(k, shp)
+        t = torch.zeros(shp, dtype=param_dtype(cfg, k, shp), device=dev)
+        if law == "log_uniform":
+            u = torch.rand(shp, generator=gen, device=dev, dtype=torch.float64)
+            t.copy_(torch.log(1.0 + 15.0 * u))
+        elif law == "normal":
+            fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
+            std = 1.0 / math.sqrt(max(fan_in, 1))
+            for part in (t.view(-1, *shp[-2:]) if len(shp) > 2 else [t]):
+                part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                           * std)
+        out[k] = t
+    return out
+
+
+def _sub(params: Dict[str, torch.Tensor], prefix: str
+         ) -> Dict[str, torch.Tensor]:
+    pl = len(prefix)
+    return {k[pl:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def layer(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s parameters: views of the stacked ``(L, …)`` tensors."""
+    return {k: v[i] for k, v in stack.items()}
+
+
+# ---------------------------------------------------------------------------
+# Blocks (prefill / forward)
+# ---------------------------------------------------------------------------
+
+
+def _attention_sublayer(p, x, cfg: ModelConfig, positions, *, causal=True,
+                        window=0, prefix_len=0):
+    """Self-attention of one block.  The reference repeats K/V to the full
+    head count so that one head axis shards over its mesh; the port keeps
+    the KV heads (the same arithmetic: query head h reads KV head h // G)."""
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["ln1"])
+    q = (h @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    kv = (h @ p["wkv"].to(x.dtype)).reshape(B, S, 2, KV, hd)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention_cv(q, k, v, bool(causal), int(window or 0),
+                           float(cfg.attn_softcap), fit_chunk(S, cfg.q_chunk),
+                           fit_chunk(S, cfg.kv_chunk), int(prefix_len))
+    out = o.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    return out.to(x.dtype)
+
+
+def _dense_block(p, x, cfg: ModelConfig, positions, window=0, prefix_len=0):
+    a = _attention_sublayer(p, x, cfg, positions, window=window,
+                            prefix_len=prefix_len)
+    if cfg.family == "gemma2":
+        a = rms_norm(a, p["ln1_post"])
+    x = x + a
+    h = rms_norm(x, p["ln2"])
+    m = swiglu(h, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
+               p["w_down"].to(x.dtype)).to(x.dtype)
+    if cfg.family == "gemma2":
+        m = rms_norm(m, p["ln2_post"])
+    return x + m
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        # sqrt(d) rounded to the compute dtype first, as the reference does
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype,
+                             device=x.device)
+    return x
+
+
+def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward: returns (final hidden (B,S,d), moe aux loss)."""
+    require_family(cfg, "forward_hidden")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    stack = _sub(params, "blocks.")
+    for i in range(cfg.n_layers):
+        # gemma2: even layers local (sliding window), odd layers global
+        win = cfg.window if cfg.family == "gemma2" and i % 2 == 0 else 0
+        x = _dense_block(layer(stack, i), x, cfg, pos, window=win)
+    x = rms_norm(x, params["final_norm"])
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -25,7 +25,12 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 new = {"repro_torch.core.distributed", "repro_torch.core.torch_sampler",
        "repro_torch.core.sharding", "repro_torch.core.sharding.catalog",
-       "repro_torch.core.sharding.sampler", "repro_torch.core.sharding.stats"}
+       "repro_torch.core.sharding.sampler", "repro_torch.core.sharding.stats",
+       "repro_torch.configs", "repro_torch.configs.gemma2_9b",
+       "repro_torch.configs.zamba2_7b", "repro_torch.models",
+       "repro_torch.models.layers", "repro_torch.models.moe",
+       "repro_torch.models.serve", "repro_torch.models.ssm",
+       "repro_torch.models.transformer", "repro_torch.launch.serve"}
 print(len(names), "modules;", "leaked:", bad, "missing:", new - set(names))
 sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)
 """
@@ -41,8 +46,10 @@ def test_port_imports_neither_jax_nor_repro():
 @pytest.mark.parametrize("entry", ["set_union_sampler", "backend", "device",
                                    "ops", "online", "estimator",
                                    "rw_warmup", "disjoint", "bernoulli",
-                                   "chain", "distributed", "mesh"])
+                                   "chain", "distributed", "mesh",
+                                   "lm_cli", "serve_lm"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
+    from repro_torch.configs import get_smoke_config
     from repro_torch.core.backends.torch_backend import TorchBackend
     from repro_torch.core.distributed import DistributedUnionSampler
     from repro_torch.core.estimators import TorchEstimator
@@ -56,8 +63,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.data.workloads import uq1
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.serve import init_cache
+    from repro_torch.models.transformer import init_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm_cfg = get_smoke_config("gemma2-9b")
     wl = uq1(scale=0.05, overlap=0.4, seed=0)
     sizes = {j.name: 1.0 for j in wl.joins}
     keys = np.arange(10)
@@ -89,9 +100,24 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                                     world=2)
         elif entry == "mesh":
             ShardedCatalog(wl.cat, wl.joins)
+        elif entry == "lm_cli":
+            serve_cli.main(["--smoke", "--arch", "gemma2-9b"])
+        elif entry == "serve_lm":
+            serve_cli.serve_lm(lm_cfg, {}, requests=1)
         else:
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    if entry in ("lm_cli", "serve_lm"):
+        # the LM side's other entry points need the card too, and run
+        # with device="cpu"
+        for fn in (lambda d: init_params(lm_cfg, 0, device=d),
+                   lambda d: init_cache(lm_cfg, 1, 8, device=d)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(None)
+            fn("cpu")
+        out = serve_cli.main(["--smoke", "--arch", "gemma2-9b", "--device",
+                              "cpu", "--requests", "1", "--max-new", "2"])
+        assert len(out["done"]) == 1
     if entry == "mesh":
         with pytest.raises(RuntimeError, match="CUDA"):
             make_sampler_mesh()

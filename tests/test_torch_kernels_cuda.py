@@ -14,7 +14,12 @@ the plain versions on the same uniforms; the walk case holds every UQ1
 wander-join walk through ``probe_pick`` equal to the plain walk.  The
 device-loop cases capture the union engine's round as a CUDA graph
 (``fused_rounds="device"``) and hold it bit-equal to the host loop, on UQ1
-under both plans and on UQ2 rejection mode.
+under both plans and on UQ2 rejection mode.  Decode attention runs every
+case of ``cases.ATTENTION_CASES``, the attention shapes of every config
+among them; a shape the kernel does not take must raise and launch
+nothing; and nine ``decode_step``s of four smoke configs through the
+kernel must agree with the same steps through the plain version
+(``cases.lm_logits_agreement``).
 
 Without a card every test here skips.
 """
@@ -26,7 +31,8 @@ from repro_torch.kernels import attention, probe, segdegree
 from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CARD_CASES,
                                        PROBE_CASES, SEGDEGREE_CARD_CASES,
                                        SEGDEGREE_CASES, attention_case,
-                                       attention_tol, key_dtypes, probe_case,
+                                       attention_tol, key_dtypes,
+                                       lm_logits_agreement, probe_case,
                                        probe_uniforms, segdegree_card_case)
 
 
@@ -106,10 +112,73 @@ def test_decode_attention_on_card_equals_plain(case):
         assert not out[1].any()
     elif case == "all_zero_lengths":
         assert not out.any()
+    elif case.startswith("head_mapping"):
+        # query head h reads KV head h // G, whose values are all h // G + 1
+        heads = torch.as_tensor(c["heads"], dtype=torch.float32,
+                                device="cuda")
+        torch.testing.assert_close(out.float(), heads[None, :, None].expand(
+            out.shape), rtol=1e-6, atol=0)
     elif case.startswith("softcap_range"):
         # control: the same kernel without the softcap must fail the limit
         nocap = attention.decode_attention(*t, lt, softcap=0.0, window=win)
         assert not torch.allclose(nocap.float(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_other_shapes_on_card():
+    """A shape the kernel does not take raises on a CUDA tensor and
+    launches nothing: no path gives way to the plain version."""
+    _need_card()
+    for H, KVH, D in ((4, 2, 32), (49, 1, 64), (4, 2, 96), (100, 2, 128)):
+        q = torch.zeros((1, H, D), device="cuda")
+        k = torch.zeros((1, 8, KVH, D), device="cuda")
+        before = probe.launch_counts["decode_attention"]
+        with pytest.raises(ValueError, match="the kernel takes"):
+            attention.decode_attention(q, k, k, torch.tensor([8],
+                                                             device="cuda"))
+        assert probe.launch_counts["decode_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minitron-8b", "granite-20b",
+                                  "mistral-large-123b", "gemma2-9b"])
+def test_decode_step_on_card_equals_plain(monkeypatch, arch):
+    """Nine decode steps of a smoke config (bf16) through B4 and through
+    ``decode_attention_plain``, on the same parameters and tokens: two
+    launches per attention layer and step, logits within
+    ``cases.LM_PATH_*``.  Row 1 starts at length 30, past gemma2's smoke
+    window 32 by step 3, so its local ring wraps."""
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import serve, transformer
+    cfg = get_smoke_config(arch)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    B, T, max_len = 3, 9, 48
+    toks = torch.randint(4, cfg.vocab, (B, T), generator=g, device="cuda")
+    start = torch.tensor([0, 30, 5], device="cuda")
+
+    def plain(q, k, v, lengths, softcap=0.0, window=0):
+        return attention.decode_attention_plain(q, k, v, lengths,
+                                                softcap=softcap, window=window)
+    runs = {}
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(attention, "decode_attention", plain)
+        cache = serve.init_cache(cfg, B, max_len, device="cuda")
+        before = probe.launch_counts["decode_attention"]
+        logits = []
+        for t in range(T):
+            cache, lg = serve.decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                          start + t)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        launched = probe.launch_counts["decode_attention"] - before
+        assert launched == (2 * T * cfg.n_layers if mode == "kernel" else 0)
+        runs[mode] = torch.stack(logits)
+    assert bool(torch.isfinite(runs["kernel"]).all())
+    lm_logits_agreement(runs["kernel"], runs["plain"], arch)
 
 
 @pytest.mark.cuda
