@@ -148,7 +148,21 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    generator: device ms, B4's share, the device busy share, the byte
    bound (weights + kept K/V rows), peak memory; then
    ``python -m repro_torch.launch.serve --mode lm --smoke --arch
-   gemma2-9b`` in a subprocess (D 16 in B4), which must exit 0.
+   gemma2-9b`` in a subprocess (D 16 in B4), which must exit 0;
+13. training (``[train]``) — one float32 train step of the unionlm and
+   gemma2 smoke configs from numpy parameters on the card and on the CPU,
+   held to the CPU tests' limits; then ``repro_torch.launch.train.main``
+   at unionlm-100m's full width on UQ3 at scale 100 (B 16, S 1024, 30
+   steps, a checkpoint every 10) with the launch counts set to 0 just
+   before and read just after (``probe_pick`` > 0; UQ3 runs no
+   ``sorted_probe``): steady-state tokens/s, the sampler's share, peak
+   memory, the first and last loss (the last must be lower); the same
+   ``build_pipeline`` on UQ1 at scale 1 for two batches (both probes > 0:
+   UQ1's weighted nodes run ``sorted_probe``); two more
+   steps under the profiler (device ms, busy share, kernels per step); and
+   a ``TrainSupervisor`` on the same pipeline with one failure injected
+   after its first checkpoint: one restart, the target step, and the state
+   restored from ``LATEST`` bit-equal to the state saved.
 
 Every served path runs the engine's default round loop,
 ``fused_rounds="device"``: one round captured as a CUDA graph per capacity
@@ -186,7 +200,9 @@ CLI and rank 0 of ``[sharded-w2]`` in both loops among them), and the
 its time at walk width (``walk_ms`` and the ``walk_`` keys).  The
 ``decode_attention`` row's ``launches`` are ``[lm]``'s gemma2-9b
 ``serve_lm`` run, with the ``[ops]`` and minitron-8b counts under
-``launches_by_path`` and ``launches_per_decode_step`` beside them.
+``launches_by_path`` and ``launches_per_decode_step`` beside them; the
+``sorted_probe`` and ``probe_pick`` rows carry ``[train]``'s counts under
+``launches_by_path`` too.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -1453,6 +1469,292 @@ def phase_lm_cli() -> dict:
                              f"\n{proc.stdout}\n{proc.stderr[-3000:]}")
     return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
             "stdout": proc.stdout.strip().splitlines()}
+
+
+# [train]: the train CLI at unionlm-100m's full width on UQ3 at the [uq3]
+# scale (≈ TPC-H SF 1), then two profiled steps and a supervised restart
+TRAIN_ARGV = ["--arch", "unionlm-100m", "--workload", "UQ3", "--scale",
+              "100", "--batch", "16", "--seq", "1024", "--steps", "30",
+              "--checkpoint-every", "10"]
+TRAIN_PARITY_ARCHS = ("unionlm-100m", "gemma2-9b")
+# tests/test_torch_train.py's limits: float32 values, gradients (the
+# optimizer slots), and the whole step (each parameter within 2·lr, at
+# least 99.9 % of them within rtol 1e-4 and atol 1e-6)
+TRAIN_F32 = {"rtol": 1e-4, "atol": 1e-4}
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-5
+TRAIN_STEP_RTOL, TRAIN_STEP_ATOL, TRAIN_STEP_SHARE = 1e-4, 1e-6, 0.999
+
+
+def _numpy_params(cfg, seed: int) -> dict:
+    """Parameters under the reference's law from a numpy generator."""
+    from repro_torch.models.transformer import init_law, param_entries
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, (shp, _) in param_entries(cfg).items():
+        fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
+        out[k] = (np.zeros(shp, np.float32) if init_law(k, shp) == "zeros"
+                  else (rng.standard_normal(shp) / np.sqrt(fan_in)
+                        ).astype(np.float32))
+    return out
+
+
+def _train_parity(arch: str) -> dict:
+    """One float32 train step of ``arch``'s smoke config from numpy
+    parameters and batch, on the card and on the CPU, held to the CPU
+    tests' limits (loss, grad-norm and lr as values, the optimizer slots
+    as gradients, the parameters under the whole-step limit)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    tc = TrainConfig(opt=OptConfig(lr=1e-3), total_steps=10, warmup_steps=1)
+    nparams = _numpy_params(cfg, seed=0)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(4, cfg.vocab, (2, 64)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = params_from_numpy(cfg, nparams, dev, dtype=torch.float32)
+        state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                 "params": params, "opt": init_opt_state(tc.opt, params)}
+        state, metrics = make_train_step(cfg, tc)(state, {
+            k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        out[dev] = (state, {k: float(v) for k, v in metrics.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(gm[k], cm[k], err_msg=f"[train] {arch} {k}",
+                                   **TRAIN_F32)
+    worst, outside, n = 0.0, 0, 0
+    for k, want in cs["params"].items():
+        want = want.double().numpy()
+        d = np.abs(gs["params"][k].cpu().double().numpy() - want)
+        worst = max(worst, float(d.max()))
+        outside += int((d > TRAIN_STEP_ATOL + TRAIN_STEP_RTOL
+                        * np.abs(want)).sum())
+        n += want.size
+    if worst > 2 * cm["lr"] or outside > (1 - TRAIN_STEP_SHARE) * n:
+        raise AssertionError(f"[train] {arch}: card step differs from the "
+                             f"CPU step: max {worst}, {outside} of {n} "
+                             "parameters outside")
+    for k, want in cs["opt"].items():
+        want = want.numpy()
+        np.testing.assert_allclose(
+            gs["opt"][k].cpu().numpy(), want, rtol=TRAIN_GRAD_RTOL,
+            atol=TRAIN_GRAD_ATOL * np.abs(want).max(),
+            err_msg=f"[train] {arch} {k}")
+    return {"loss": [cm["loss"], gm["loss"]],
+            "grad_norm": [cm["grad_norm"], gm["grad_norm"]],
+            "param_max_abs_diff": worst, "params_outside": outside,
+            "n_params": n}
+
+
+def _cuda_events(fn):
+    """The kernels and copies of one call of ``fn`` (torch.profiler with
+    device activity only: a train step's ~10^4 host ops are not recorded),
+    as (name, microseconds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    if not ev:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return ev
+
+
+def _uq1_pipeline(batches: int = 2) -> dict:
+    """The train CLI's ``build_pipeline`` on UQ1 (scale ``SHARDS_SCALE``),
+    whose weighted nodes run ``sorted_probe``: ``batches`` token batches at
+    ``TRAIN_ARGV``'s shape with the launch counts set to 0 just before and
+    read just after (both probes > 0)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import build_pipeline
+    t0 = time.perf_counter()
+    pipe = build_pipeline("UQ1", SHARDS_SCALE, 0, 16, 1024, 8192,
+                          "histogram", False, "cuda")
+    build_s = time.perf_counter() - t0
+    build.reset_launch_counts()
+    for _ in range(batches):
+        pipe.next_batch()
+    launches = _launches()
+    _require_probes("train UQ1 pipeline", launches)
+    return {"scale": SHARDS_SCALE, "batches": batches,
+            "tuples": pipe.stats.tuples, "build_s": build_s,
+            "sample_s": pipe.stats.sample_seconds, "launches": launches}
+
+
+def _bits(t):
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def phase_train(seed: int = 0) -> dict:
+    """The train CLI's path on the card: (1) one float32 step of the smoke
+    configs on the card against the CPU; (2) ``launch.train.main`` at
+    ``TRAIN_ARGV`` (unionlm-100m at full width, UQ3 at scale 100, B 16, S
+    1024, 30 steps) with the launch counts set to 0 just before and read
+    just after: steady-state tokens/s (steps 2-30), the sampler's share,
+    peak memory, the first and last loss (the last must be lower) and
+    ``probe_pick`` > 0 (every UQ3 node is uniform: the path runs no
+    ``sorted_probe``), then two batches of the same pipeline on UQ1
+    (``_uq1_pipeline``: ``sorted_probe`` > 0); two more steps under the
+    profiler (device ms, busy
+    share, the costliest kernels); (3) a ``TrainSupervisor`` on the same
+    pipeline with one failure injected right after its first checkpoint:
+    exactly one restart, the target step (one past the checkpoint)
+    reached, and the state restored from ``LATEST`` bit-equal to the state
+    saved."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.kernels import build
+    from repro_torch.launch.ft import FTConfig, TrainSupervisor
+    from repro_torch.launch.train import main as train_main
+    t0 = time.perf_counter()
+    out = {"parity": {a: _train_parity(a) for a in TRAIN_PARITY_ARCHS}}
+    out["parity_s"] = time.perf_counter() - t0
+    ckdir = os.path.join(HERE, "build", "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = train_main(TRAIN_ARGV + ["--checkpoint-dir", ckdir,
+                                       "--device", "cuda"])
+        out["launches"] = _launches()
+        out["cli_s"] = time.perf_counter() - t1
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        state, step, pipe = res["state"], res["train_step"], res["pipeline"]
+        losses, step_s = res["losses"], res["step_seconds"]
+        if out["launches"]["probe_pick"] <= 0:
+            raise AssertionError("[train] the UQ3 pipeline launched no "
+                                 "probe_pick")
+        out["uq1_pipeline"] = _uq1_pipeline()
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"[train] loss did not fall: {losses[0]} -> "
+                                 f"{losses[-1]}")
+        tok = res["tokens_per_step"]
+        out.update(
+            steps=len(losses), tokens_per_step=tok,
+            loss_first=losses[0], loss_last=losses[-1],
+            first_step_s=step_s[0],
+            steady_tokens_per_s=tok * (len(step_s) - 1) / sum(step_s[1:]),
+            steady_step_ms=1e3 * sum(step_s[1:]) / (len(step_s) - 1),
+            run_s=res["seconds"],
+            run_tokens_per_s=tok * len(losses) / res["seconds"],
+            sample_s=pipe.stats.sample_seconds,
+            sampler_share_of_run=pipe.stats.sample_seconds / res["seconds"],
+            sampler_share_of_step_wall=pipe.stats.sample_seconds / (
+                pipe.stats.sample_seconds + sum(step_s)),
+            tuples=pipe.stats.tuples, checkpoints=res["ft"].checkpoints,
+            n_params=sum(t.numel() for t in state["params"].values()))
+
+        # two steps under the profiler, on batches drawn before it
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                    zip(("tokens", "targets"), pipe.next_batch())}
+                   for _ in range(2)]
+        box = [state]
+
+        def two_steps():
+            for b in batches:
+                box[0], m = step(box[0], b)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ev = _cuda_events(two_steps)
+        prof_s = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        two_steps()
+        wall_ms = (time.perf_counter() - t2) * 1e3 / 2
+        dev_ms = sum(us for _, us in ev) / 2 / 1e3
+        by_name: dict = {}
+        for name, us in ev:
+            by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 2 / 1e3
+        # cuBLAS's kernels: sm80_xmma_gemm_* (float32) and nvjet_* (bf16
+        # on Hopper)
+        gemm = [(n, us) for n, us in ev
+                if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet"))]
+        gemm_ms = sum(us for _, us in gemm) / 2 / 1e3
+        f32_gemm_ms = sum(us for n, us in gemm if "f32f32" in n) / 2 / 1e3
+        out["profile"] = {
+            "device_ms_per_step": dev_ms, "wall_ms_per_step": wall_ms,
+            "device_busy_share": dev_ms / wall_ms,
+            "device_events_per_step": len(ev) / 2,
+            "gemm_ms_per_step": gemm_ms,
+            "f32_gemm_ms_per_step": f32_gemm_ms, "profiler_s": prof_s,
+            "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
+
+        # a supervised restart on the same pipeline
+        state = box[0]
+        ck = Checkpointer(os.path.join(ckdir, "restart"), keep=2)
+        saved, restored = {}, {}
+        real_save, real_restore = ck.save, ck.restore
+
+        def save(s, st, pp=None):
+            saved[s] = {k: _bits(v) for k, v in _flat_leaves(st).items()}
+            return real_save(s, st, pp)
+
+        def restore(s=None, device=None, verify=True):
+            tree, pp = real_restore(s, device, verify)
+            restored[s] = {k: _bits(v) for k, v in _flat_leaves(tree).items()}
+            return tree, pp
+        ck.save, ck.restore = save, restore
+        s0 = int(state["step"])
+        first_ck = s0 + 2 - s0 % 2            # checkpoint_every=2
+        fired = []
+
+        def inject(s):
+            if s == first_ck and not fired:
+                fired.append(s)
+                raise RuntimeError("injected failure")
+
+        def step_fn(st, batch):
+            return step(st, {k: torch.as_tensor(v, device="cuda")
+                             for k, v in zip(("tokens", "targets"), batch)})
+        sup = TrainSupervisor(step_fn, pipe.next_batch, ck,
+                              FTConfig(checkpoint_every=2),
+                              pipeline_state_fn=pipe.state_dict,
+                              restore_pipeline_fn=pipe.load_state_dict)
+        t3 = time.perf_counter()
+        target = first_ck + 1
+        final = sup.run(state, target - s0, fail_injector=inject)
+        torch.cuda.synchronize()
+        if sup.stats.restarts != 1 or int(final["step"]) != target:
+            raise AssertionError(f"[train] restart: {sup.stats}, step "
+                                 f"{int(final['step'])} (target {target})")
+        if list(restored) != [first_ck]:
+            raise AssertionError(f"[train] restored {list(restored)}, not "
+                                 f"step {first_ck}")
+        a, b = saved[first_ck], restored[first_ck]
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("[train] the restored state differs from "
+                                 "the saved state")
+        out["restart"] = {"from_step": s0, "target": target,
+                          "restarts": sup.stats.restarts,
+                          "restored_step": first_ck,
+                          "leaves_bit_equal": len(a),
+                          "checkpoints": sup.stats.checkpoints,
+                          "seconds": time.perf_counter() - t3}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 # wander-join batch widths: the [walks] check and timing, the online
@@ -2996,6 +3298,13 @@ def main(argv=None) -> int:
     att_row["path"] = "[lm] gemma2-9b serve_lm at the CLI's defaults"
     att_row["launches_per_decode_step"] = {
         a: lm_out[a]["b4_launches_per_step"] for a in LM_ARCHS}
+
+    # 13. training at unionlm-100m's full width on UQ3 samples
+    train_out = phase_train()
+    print("[train] " + json.dumps(train_out), flush=True)
+    mark("train")
+    path_launches("[train] unionlm-100m UQ3", train_out)
+    path_launches("[train] UQ1 pipeline (scale 1)", train_out["uq1_pipeline"])
 
     cuts = [f"{what} {got:g} (full: {full:g})" for what, got, full in (
         ("UQ1 scale", args.scale, UQ1_SCALE),

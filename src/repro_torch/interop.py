@@ -10,7 +10,9 @@ join tuple over the base relations.
 
 A model's weights travel the same way: :func:`params_from_numpy` takes the
 reference's parameter dict (name → numpy array, the names of
-``param_entries``) and returns the port's.
+``param_entries``) and returns the port's; :func:`train_state_from_numpy`
+carries a whole train state (step, float32 masters, optimizer slots and
+the error-feedback residuals).
 """
 
 from __future__ import annotations
@@ -100,4 +102,31 @@ def params_from_numpy(cfg, params: Mapping[str, np.ndarray], device=None,
             dt = dtype
         out[name] = torch.tensor(arr, dtype=torch.float32).to(device=dev,
                                                               dtype=dt)
+    return out
+
+
+def train_state_from_numpy(cfg, tc, state: Mapping[str, Any], device=None
+                           ) -> Dict[str, Any]:
+    """The port's train state (:mod:`repro_torch.train.train_step`) from
+    the reference's, as numpy arrays: ``step`` an int32 0-dim tensor, the
+    float32 masters through :func:`params_from_numpy`, each optimizer slot
+    in the dtype ``tc.opt`` gives it (bf16 ``m`` under ``m_dtype=
+    "bfloat16"``: exact, since every bf16 value is a float32 value) and
+    ``ef`` in float32, all on ``device`` (``None``: the card)."""
+    from .train.optimizer import m_dtype
+    dev = resolve_device(device)
+
+    def tensor(a, dt):
+        return torch.tensor(np.asarray(a, np.float32)).to(device=dev, dtype=dt)
+
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev),
+           "params": params_from_numpy(cfg, state["params"], device=dev,
+                                       dtype=torch.float32),
+           "opt": {k: tensor(v, m_dtype(tc.opt) if k.startswith("m.")
+                             else torch.float32)
+                   for k, v in state["opt"].items()}}
+    if "ef" in state:
+        out["ef"] = {k: tensor(v, torch.float32)
+                     for k, v in state["ef"].items()}
     return out

@@ -1,5 +1,5 @@
-"""Model assembly of the port: ``ModelConfig``, parameter shapes and the
-forward pass for inference.
+"""Model assembly of the port: ``ModelConfig``, parameter shapes, the
+forward pass and the training loss.
 
 The port's copy of the reference's ``repro/models/transformer.py``.
 ``ModelConfig``, :func:`param_entries` and :func:`logical_axes` cover every
@@ -15,23 +15,34 @@ forward pass runs the ``dense`` and ``gemma2`` families:
 The other families raise ``NotImplementedError`` naming their ROADMAP item.
 Parameters are a plain dict under the reference's names (``blocks.wq`` …)
 with the stacked ``(L, …)`` layout; where the reference scans over layers
-the port loops over views ``p[l]`` of the stacked tensors.  The reference's
-sharding constraints are no-ops without a mesh and are left out until
-model sharding is ported (ROADMAP §A 7).
+the port loops over the layers of the stacked tensors (``unbind``, whose
+backward stacks the per-layer gradients into one ``(L, …)`` gradient).
+With ``cfg.remat`` and gradients on, each block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body; it changes memory, never values), and :func:`_chunked_xent`
+recomputes each loss chunk's logits in the backward, so the full
+``(B, S, V)`` logits never exist.  The reference's sharding constraints are
+no-ops without a mesh and are left out until model sharding is ported
+(ROADMAP §A 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .layers import fit_chunk, flash_attention_cv, rms_norm, rope, swiglu
+from .layers import (fit_chunk, flash_attention_cv, rms_norm, rope, softcap,
+                     swiglu)
 from .moe import MoEDims, moe_param_shapes
 from .ssm import SSMDims, ssm_param_shapes
+
+PAD_ID = 0
+
 
 def require_family(cfg: "ModelConfig", what: str) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run
@@ -242,7 +253,7 @@ def param_dtype(cfg: ModelConfig, name: str, shape: Tuple[int, ...]
         else torch.float32
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None
                 ) -> Dict[str, torch.Tensor]:
     """Random parameters on ``device`` (``None``: the card) from a
     ``torch.Generator`` seeded with ``seed``, under the reference's law:
@@ -254,14 +265,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
     (tests feed both packages the same numpy parameters through
     :func:`repro_torch.interop.params_from_numpy` instead).  Weights are
     drawn per layer in float32 and stored in :func:`param_dtype`, so no
-    float32 copy of a model stays beside its bf16 weights."""
+    float32 copy of a model stays beside its bf16 weights; ``dtype``
+    replaces the weights' dtype (``torch.float32``: the float32 masters of
+    training, every parameter in float32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out = {}
     for k, (shp, _) in param_entries(cfg).items():
         law = init_law(k, shp)
-        t = torch.zeros(shp, dtype=param_dtype(cfg, k, shp), device=dev)
+        dt = param_dtype(cfg, k, shp)
+        if dtype is not None and law == "normal":
+            dt = dtype
+        t = torch.zeros(shp, dtype=dt, device=dev)
         if law == "log_uniform":
             u = torch.rand(shp, generator=gen, device=dev, dtype=torch.float64)
             t.copy_(torch.log(1.0 + 15.0 * u))
@@ -284,6 +300,16 @@ def _sub(params: Dict[str, torch.Tensor], prefix: str
 def layer(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s parameters: views of the stacked ``(L, …)`` tensors."""
     return {k: v[i] for k, v in stack.items()}
+
+
+def layers(stack: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's parameters as views (``unbind``): under autograd one
+    node per stacked tensor, whose backward stacks the layers' gradients
+    once, where a view ``p[l]`` per layer would each scatter into a zero
+    tensor of the whole stack."""
+    names = list(stack)
+    return [dict(zip(names, vals))
+            for vals in zip(*(stack[k].unbind(0) for k in names))]
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +370,56 @@ def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
-    stack = _sub(params, "blocks.")
-    for i in range(cfg.n_layers):
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, p in enumerate(layers(_sub(params, "blocks."))):
         # gemma2: even layers local (sliding window), odd layers global
         win = cfg.window if cfg.family == "gemma2" and i % 2 == 0 else 0
-        x = _dense_block(layer(stack, i), x, cfg, pos, window=win)
+        if remat:
+            x = checkpoint(lambda h, p=p, win=win: _dense_block(
+                p, h, cfg, pos, window=win), x, use_reentrant=False)
+        else:
+            x = _dense_block(p, x, cfg, pos, window=win)
     x = rms_norm(x, params["final_norm"])
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _xent_chunk(xi: torch.Tensor, embed: torch.Tensor, ti: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One loss chunk: (summed masked NLL, count of non-PAD targets)."""
+    logits = softcap((xi @ embed.to(xi.dtype).T).float(), cfg.final_softcap)
+    mask = (ti != PAD_ID).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, ti[..., None].long(), dim=-1)[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def _chunked_xent(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy streamed over ``cfg.loss_chunk`` sequence chunks: only
+    one chunk's (B, C, V) logits exist at a time, and under autograd each
+    chunk is recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint(nothing_saveable)``)."""
+    S = x.shape[1]
+    C = fit_chunk(S, cfg.loss_chunk)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // C):
+        xi, ti = x[:, c * C:(c + 1) * C], targets[:, c * C:(c + 1) * C]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_xent_chunk, xi, embed, ti, cfg,
+                                use_reentrant=False)
+        else:
+            nll, n = _xent_chunk(xi, embed, ti, cfg)
+        nll_sum, cnt = nll_sum + nll, cnt + n
+    return nll_sum, cnt
+
+
+def forward_train(params: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (loss, metrics). batch: tokens/targets (B, S)."""
+    require_family(cfg, "forward_train")
+    x, aux_total = forward_hidden(params, cfg, batch)
+    nll_sum, cnt = _chunked_xent(x, params["embed"], batch["targets"], cfg)
+    loss = nll_sum / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss, "aux_loss": aux_total, "tokens": cnt}

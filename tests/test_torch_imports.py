@@ -30,7 +30,12 @@ new = {"repro_torch.core.distributed", "repro_torch.core.torch_sampler",
        "repro_torch.configs.zamba2_7b", "repro_torch.models",
        "repro_torch.models.layers", "repro_torch.models.moe",
        "repro_torch.models.serve", "repro_torch.models.ssm",
-       "repro_torch.models.transformer", "repro_torch.launch.serve"}
+       "repro_torch.models.transformer", "repro_torch.launch.serve",
+       "repro_torch.train", "repro_torch.train.optimizer",
+       "repro_torch.train.grad_compress", "repro_torch.train.train_step",
+       "repro_torch.data.encode", "repro_torch.data.pipeline",
+       "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
+       "repro_torch.launch.ft", "repro_torch.launch.train"}
 print(len(names), "modules;", "leaked:", bad, "missing:", new - set(names))
 sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)
 """
@@ -47,7 +52,7 @@ def test_port_imports_neither_jax_nor_repro():
                                    "ops", "online", "estimator",
                                    "rw_warmup", "disjoint", "bernoulli",
                                    "chain", "distributed", "mesh",
-                                   "lm_cli", "serve_lm"])
+                                   "lm_cli", "serve_lm", "train_cli"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.backends.torch_backend import TorchBackend
@@ -64,6 +69,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.models.serve import init_cache
     from repro_torch.models.transformer import init_params
 
@@ -104,6 +110,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             serve_cli.main(["--smoke", "--arch", "gemma2-9b"])
         elif entry == "serve_lm":
             serve_cli.serve_lm(lm_cfg, {}, requests=1)
+        elif entry == "train_cli":
+            train_cli.main(["--smoke", "--steps", "1"])
         else:
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
@@ -118,6 +126,15 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         out = serve_cli.main(["--smoke", "--arch", "gemma2-9b", "--device",
                               "cpu", "--requests", "1", "--max-new", "2"])
         assert len(out["done"]) == 1
+    if entry == "train_cli":
+        # the training side's other entry points need the card too
+        from repro_torch.train.train_step import TrainConfig, init_train_state
+        for fn in (lambda d: init_train_state(lm_cfg, TrainConfig(), 0, d),
+                   lambda d: train_cli.build_pipeline(
+                       "UQ3", 0.01, 0, 1, 16, 512, "histogram", False, d)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(None)
+            fn("cpu")
     if entry == "mesh":
         with pytest.raises(RuntimeError, match="CUDA"):
             make_sampler_mesh()

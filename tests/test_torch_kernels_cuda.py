@@ -321,3 +321,40 @@ def test_device_loop_capture_with_predicate_masks_on_card():
     dev, host = _device_host_pair(wl, cover)
     _assert_same_calls(dev, host, (2048, 999))
     assert dev.stats.pred_rejects > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,cap,prefix", [
+    (True, 0, 0.0, 0), (True, 24, 30.0, 0), (True, 0, 0.0, 16),
+    (True, 20, 0.0, 8), (False, 0, 0.0, 0)])
+def test_flash_attention_cv_grads_on_card_equal_cpu(causal, window, cap,
+                                                    prefix):
+    """The training attention's recompute backward on the card against the
+    same function on the CPU (float32, full-precision products: the
+    gradient limit of ``test_torch_train.py``, rtol 1e-4 and atol 1e-5 ×
+    max|g|)."""
+    _need_card()
+    import numpy as np
+    from repro_torch.models import layers
+    rng = np.random.default_rng(5)
+    B, S, H, KV, D = 2, 64, 6, 2, 16
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                        (B, S, H, D))]
+    grads = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                       for a in arrays[:3])
+            o = layers.flash_attention_cv(q, k, v, causal, window, cap, 16,
+                                          32, prefix)
+            (o * torch.as_tensor(arrays[3], device=dev)).sum().backward()
+            grads[dev] = [t.cpu().numpy() for t in (o.detach(), q.grad,
+                                                    k.grad, v.grad)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())
