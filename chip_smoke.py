@@ -149,6 +149,21 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    bound (weights + kept K/V rows), peak memory; then
    ``python -m repro_torch.launch.serve --mode lm --smoke --arch
    gemma2-9b`` in a subprocess (D 16 in B4), which must exit 0;
+12b. the other families (``[lm-families]``) — mamba2-780m, zamba2-7b,
+   whisper-medium, paligemma-3b and phi3.5-moe (16 of its 32 layers,
+   printed under ``reduced``) at full width from random bf16 weights, one
+   model on the card at a time: ``serve_lm`` at the CLI's defaults with
+   exactly 0 / 13 / 48 / 18 / 16 B4 calls (two launches each) per decode
+   step; device ms, busy share, byte bound and peak memory of a step at
+   the CLI's shape; for zamba2-7b and whisper-medium one step at 8 slots ×
+   8k context (every cache, whisper's cross K/V too, from a seeded
+   generator: device ms, B4's share, busy share, byte bound); nine steps
+   through B4 against the plain version and, for mamba2, zamba2 and
+   phi3.5-moe, the last step against ``prefill_step`` — on the bf16 model,
+   or in float32 where bf16 rounding swamps the check (``FAMILY_F32``;
+   phi3.5-moe's prefill dropless where its capacity factor drops tokens
+   that decode keeps); then ``python -m repro_torch.launch.serve --mode lm
+   --smoke --arch zamba2-7b`` in a subprocess, which must exit 0;
 13. training (``[train]``) — one float32 train step of the unionlm and
    gemma2 smoke configs from numpy parameters on the card and on the CPU,
    held to the CPU tests' limits; then ``repro_torch.launch.train.main``
@@ -199,8 +214,9 @@ CLI and rank 0 of ``[sharded-w2]`` in both loops among them), and the
 ``probe_pick`` row
 its time at walk width (``walk_ms`` and the ``walk_`` keys).  The
 ``decode_attention`` row's ``launches`` are ``[lm]``'s gemma2-9b
-``serve_lm`` run, with the ``[ops]`` and minitron-8b counts under
-``launches_by_path`` and ``launches_per_decode_step`` beside them; the
+``serve_lm`` run, with the ``[ops]``, minitron-8b and ``[lm-families]``
+counts under ``launches_by_path`` and ``launches_per_decode_step`` beside
+them; the
 ``sorted_probe`` and ``probe_pick`` rows carry ``[train]``'s counts under
 ``launches_by_path`` too.
 
@@ -1318,13 +1334,11 @@ def phase_lm(arch: str, seed: int = 0) -> dict:
     ``prefill_step`` over the same tokens (the reference's bar: correlation
     > 0.99, top-1 agreement >= 0.5); for gemma2-9b one timed step at a real
     context (``LM_CONTEXT``).  Frees the model before it returns."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attention, build
-    from repro_torch.kernels.cases import lm_logits_agreement
+    from repro_torch.kernels import build
     from repro_torch.launch.serve import serve_lm
-    from repro_torch.models.serve import decode_step, init_cache, prefill_step
+    from repro_torch.models.serve import decode_step, init_cache
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
     n_attn = cfg.n_layers
@@ -1371,9 +1385,316 @@ def phase_lm(arch: str, seed: int = 0) -> dict:
     g.manual_seed(seed + 1)
     toks = torch.randint(4, cfg.vocab, (B, LM_CHECK_STEPS), generator=g,
                          device="cuda")
+    kvp = _kernel_vs_plain(cfg, params, toks, n_attn, True)
+    out["decode_vs_prefill"] = _decode_vs_prefill(cfg, params, toks,
+                                                  kvp.pop("last"))
+    out["kernel_vs_plain"] = kvp
+    out["b4_launches_per_step"] = 2 * n_attn
+
+    # 5. gemma2-9b at a real context
+    if arch == "gemma2-9b":
+        out["context"] = _context_step(cfg, params, seed)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_lm_cli(arch: str = "gemma2-9b") -> dict:
+    """``python -m repro_torch.launch.serve --mode lm --smoke --arch
+    <arch>`` in a subprocess on the card (D 16 in B4); it must exit 0."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--mode", "lm", "--smoke", "--arch", arch],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0 or not proc.stdout.startswith("served 8 requests"):
+        raise AssertionError(f"[lm] the {arch} smoke CLI failed "
+                             f"({proc.returncode}):\n{proc.stdout}\n"
+                             f"{proc.stderr[-3000:]}")
+    return {"arch": arch, "rc": proc.returncode,
+            "wall_s": time.perf_counter() - t0,
+            "stdout": proc.stdout.strip().splitlines()}
+
+
+# [lm-families]: the other families at full width, one model on the card
+# at a time: (arch, n_layers cut or None, B4 calls per decode step).  The
+# calls are serve.attention_calls_per_step: one per attention layer, one per
+# zamba2 group (the shared block), self + cross per whisper decoder layer,
+# none for mamba2; each call launches B4's two kernels.  phi3.5-moe runs 16
+# of its 32 layers: its 83.5 GB of bf16 weights do not fit one 80 GB card
+FAMILY_ARCHS = (("mamba2-780m", None, 0), ("zamba2-7b", None, 13),
+                ("whisper-medium", None, 48), ("paligemma-3b", None, 18),
+                ("phi3.5-moe-42b-a6.6b", 16, 16))
+# the reference checks decode against prefill on these (tests/test_models.py:
+# 55-56); it skips the frontend archs, and so does this phase
+FAMILY_PREFILL = ("mamba2-780m", "zamba2-7b", "phi3.5-moe-42b-a6.6b")
+FAMILY_CONTEXT = ("zamba2-7b", "whisper-medium")
+# In bf16 these random-weight models turn one-ulp differences into large
+# ones (an H100 80GB HBM3 at 700 W, PERF.md §6): the SSM stacks' bf16
+# prefill logits correlate 0.79 (mamba2-780m) and 0.47 (zamba2-7b) with
+# the float32 prefill of the same weights, so B4's summation order alone
+# moves zamba2's logits by 20 % of the largest; in phi3.5-moe a one-ulp
+# change of the attention output moves a token's top-2 experts (10.7 % at
+# one step; whisper-medium and paligemma-3b stay within 1.9 %).  So in
+# bf16 the checks below would measure rounding, not the path: for these
+# models they are held in float32, on the same weights (None) or, for
+# phi3.5-moe, on a model of 8 layers from the same seed (41.8 GB in
+# float32; 16 layers would need 83.5 GB), and the bf16 numbers are
+# printed beside them
+FAMILY_F32 = {"mamba2-780m": None, "zamba2-7b": None,
+              "phi3.5-moe-42b-a6.6b": 8}
+
+
+def _step_bytes(cfg, params, cache, lens) -> dict:
+    """The bytes one decode step must move at ``lens``: every weight it
+    reads once per use (zamba2's shared block once per group, its unused
+    tail rows and whisper's encoder not at all; the embedding once, for
+    the logits), each K/V row the masks keep (gemma2's local ring at most
+    its window; encdec's cross rows: all ``n_frontend_tokens``), and the
+    SSM state read and written."""
+    import torch
+    uses = {"shared.": cfg.n_zamba_groups}
+    w = 0
+    for k, t in params.items():
+        if k.startswith("enc"):             # the encoder: prefill only
+            continue
+        n = t.numel() * t.element_size()
+        if k.startswith("tail.") and cfg.n_zamba_tail < t.shape[0]:
+            n = n * cfg.n_zamba_tail // t.shape[0]
+        w += n * next((u for p, u in uses.items() if k.startswith(p)), 1)
+    kv = state = 0
+    for k in ("k", "k_sh", "k_loc", "k_glob", "xk"):
+        if k in cache:     # (layers, B, S, KV, hd): K and V rows kept
+            L, B, S = cache[k].shape[:3]
+            rows = (B * S if k == "xk" else
+                    int(torch.clamp(lens.long() + 1, max=S).sum()))
+            kv += L * rows * 2 * cache[k][0, 0, 0].numel() * \
+                cache[k].element_size()
+    for k in ("h", "conv", "h_tail", "conv_tail"):
+        if k in cache:
+            # read, then written (h and h_tail in float32)
+            el = 4 if k.startswith("h") else cache[k].element_size()
+            state += 2 * cache[k].numel() * el
+    total = w + kv + state
+    return {"weight_bytes": w, "kv_bytes_kept": kv, "state_bytes": state,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def _context_step(cfg, params, seed: int) -> dict:
+    """One decode step at ``LM_CONTEXT`` (8 slots, lengths in [4096, 8192),
+    ``max_len`` 8192), every cache entry (whisper's ``xk``/``xv`` too, the
+    SSM state in float32, as a step leaves it) from a seeded generator: its
+    device ms, B4's share, the device busy share of its wall time, and its
+    byte bound (``_step_bytes``)."""
+    import torch
+    from repro_torch.models.serve import decode_step, init_cache
+    B, L = LM_CONTEXT["slots"], LM_CONTEXT["max_len"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    cache = init_cache(cfg, B, L, device="cuda")
+    for k in ("h", "h_tail"):
+        if k in cache:
+            cache[k] = cache[k].float()
+    for t in cache.values():
+        for part in t:
+            part.copy_(torch.randn(part.shape, generator=g, device="cuda"))
+    lens = torch.randint(LM_CONTEXT["lo"], LM_CONTEXT["hi"], (B,),
+                         generator=g, device="cuda")
+    toks = torch.randint(4, cfg.vocab, (B, 1), generator=g, device="cuda")
+
+    def step():
+        return decode_step(params, cfg, cache, toks, lens)[1]
+    logits = step()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm] {cfg.name} context step: "
+                             "logits not finite")
+    ev = _device_events(step, 5)
+    dev_ms = sum(us for _, us in ev) / 5 / 1e3
+    b4_ms = sum(us for n, us in ev if "decode_attn" in n) / 5 / 1e3
+    wall_ms = _call_ms(step, reps=5, warm=1)
+    out = {"slots": B, "max_len": L, "lengths": lens.tolist(),
+           "device_ms": dev_ms, "b4_ms": b4_ms, "b4_share": b4_ms / dev_ms,
+           "wall_ms": wall_ms, "device_busy_share": dev_ms / wall_ms,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in cache.values()),
+           "b4_events_per_step": sum(1 for n, _ in ev if "decode_attn" in n)
+           / 5}
+    out.update(_step_bytes(cfg, params, cache, lens))
+    out["bound_share"] = out["bound_ms"] / dev_ms
+    return out
+
+
+def phase_lm_family(arch: str, n_layers, calls: int, seed: int = 0) -> dict:
+    """One config of the other families at full width (``n_layers``: a
+    depth cut, printed under ``reduced``) from random weights on the card:
+    ``serve_lm`` at the CLI's defaults (counts set to 0 just before, read
+    just after: exactly ``calls`` B4 calls, two launches each, per step);
+    device ms per step at the CLI's shape (profiler), its busy share, byte
+    bound and peak memory; for ``FAMILY_CONTEXT`` one step at a real
+    context; ``LM_CHECK_STEPS`` decode steps through B4 against the same
+    steps through ``decode_attention_plain`` (``cases.lm_logits_agreement``)
+    and, for ``FAMILY_PREFILL``, the last step against ``prefill_step``
+    (the reference's bar) — for ``FAMILY_F32`` in float32 (on the same
+    weights; phi3.5-moe on 8 layers from the same seed), the bf16 numbers
+    printed beside them.  Frees each model before
+    the next is made."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.serve import (attention_calls_per_step,
+                                          decode_step, init_cache,
+                                          prefill_step)
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if attention_calls_per_step(cfg) != calls:
+        raise AssertionError(f"[lm-families] {arch}: "
+                             f"{attention_calls_per_step(cfg)} attention "
+                             f"calls per step, expected {calls}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    out = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in params.values()),
+           "n_params": sum(t.numel() for t in params.values())}
+    if n_layers is not None:
+        out["reduced"] = (f"{n_layers} of {full_layers} layers: the full "
+                          "depth's bf16 weights (83.5 GB) do not fit one "
+                          "80 GB card")
+
+    secs, clock = {}, [t0]
+
+    def lap(label):         # wall seconds of each part, on the line
+        now = time.perf_counter()
+        secs[label] = now - clock[0]
+        clock[0] = now
+    lap("init")
+
+    # 1. the CLI's loop at its defaults
+    build.reset_launch_counts()
+    served = serve_lm(cfg, params, seed=seed, device="cuda", **LM_CLI)
+    torch.cuda.synchronize()
+    b4 = build.launch_counts["decode_attention"]
+    if len(served["done"]) != LM_CLI["requests"]:
+        raise AssertionError(f"[lm-families] {arch}: served "
+                             f"{len(served['done'])} of {LM_CLI['requests']}"
+                             " requests")
+    if b4 != 2 * calls * served["steps"]:
+        raise AssertionError(f"[lm-families] {arch}: {b4} B4 launches in "
+                             f"{served['steps']} steps, not 2 x {calls} each")
+    out["serve_lm"] = {k: served[k] for k in ("steps", "seconds",
+                                              "steps_per_s", "tokens_per_s")}
+    out["serve_lm"].update(requests_served=len(served["done"]),
+                           b4_launches=b4, b4_calls_per_step=calls,
+                           b4_launches_per_step=b4 / served["steps"],
+                           first_tokens=[t[:4] for _, t in served["done"][:2]])
+
+    lap("serve_lm")
+
+    # 2. device time, busy share and bound of one step at the CLI's shape
+    B, L = LM_CLI["slots"], LM_CLI["max_len"]
+    cache = init_cache(cfg, B, L, device="cuda")
+    tok1 = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    lens = torch.tensor([3, 17, 30, 62][:B], device="cuda")
+
+    def cli_step():
+        return decode_step(params, cfg, cache, tok1, lens)
+    dev_ms = _device_ms(cli_step, reps=5, warm=2)
+    wall_ms = _call_ms(cli_step, reps=5, warm=1)
+    out["cli_step"] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                       "device_busy_share": dev_ms / wall_ms}
+    out["cli_step"].update(_step_bytes(cfg, params, cache, lens))
+    out["cli_step"]["bound_share"] = out["cli_step"]["bound_ms"] / dev_ms
+    del cache
+    lap("cli_step")
+
+    # 3. a real context
+    if arch in FAMILY_CONTEXT:
+        out["context"] = _context_step(cfg, params, seed)
+        lap("context")
+
+    # 4. kernel path against the plain path, decode against prefill: in
+    # the config's bf16, or on the same weights in float32 (FAMILY_F32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    toks = torch.randint(4, cfg.vocab, (B, LM_CHECK_STEPS), generator=g,
+                         device="cuda")
+    held = arch not in FAMILY_F32
+    out["kernel_vs_plain"] = _kernel_vs_plain(cfg, params, toks, calls,
+                                              held)
+    last = out["kernel_vs_plain"].pop("last")
+    if held and arch in FAMILY_PREFILL:
+        out["decode_vs_prefill"] = _decode_vs_prefill(cfg, params, toks, last)
+    elif not held:      # printed, not held: the bf16 model's own spread
+        bf16_full = prefill_step(params, cfg, {"tokens": toks})
+        out["decode_vs_prefill_bf16"] = _logit_agreement(last, bf16_full)
+        if cfg.family == "moe":
+            out["decode_vs_prefill_bf16"]["dropless"] = _logit_agreement(
+                last, prefill_step(params, _dropless(cfg), {"tokens": toks}))
+    del last
+    lap("checks")
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    if not held:
+        c32 = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=FAMILY_F32[arch] or cfg.n_layers)
+        calls = attention_calls_per_step(c32)
+        params = init_params(c32, seed=seed, device="cuda")
+        k32 = _kernel_vs_plain(c32, params, toks, calls, True)
+        out["kernel_vs_plain_float32"] = k32
+        last = k32.pop("last")
+        if arch in FAMILY_PREFILL:
+            out["decode_vs_prefill_float32"] = _decode_vs_prefill(
+                c32, params, toks, last)
+        del last
+        if c32.n_layers == cfg.n_layers:
+            out["bf16_vs_float32_prefill"] = _logit_agreement(
+                bf16_full, prefill_step(params, c32, {"tokens": toks}))
+        out["float32_n_layers"] = c32.n_layers
+        out["float32_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        del params, bf16_full
+        torch.cuda.empty_cache()
+        lap("float32 checks")
+    out["seconds"] = secs
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _logit_agreement(a, b) -> dict:
+    """Correlation and top-1 agreement of two (B, vocab) logit batches."""
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    return {"corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1]),
+            "top1": float((a.argmax(-1) == b.argmax(-1)).mean())}
+
+
+def _kernel_vs_plain(cfg, params, toks, calls: int, held: bool) -> dict:
+    """``LM_CHECK_STEPS`` decode steps through B4 (exactly ``2 * calls``
+    launches each) and the same steps with ``attention.decode_attention``
+    replaced by the plain version (none): ``cases.lm_logits_agreement``
+    when ``held``, else its numbers without the limits.  ``"last"``: the
+    kernel path's last step's logits."""
+    import torch
+    from repro_torch.kernels import attention
+    from repro_torch.kernels.cases import lm_logits_agreement
+    L = LM_CLI["max_len"]
     kern, launches = _lm_steps(cfg, params, toks, L)
-    if any(n != 2 * n_attn for n in launches):
-        raise AssertionError(f"[lm] {arch}: B4 launches per step {launches}")
+    if any(n != 2 * calls for n in launches):
+        raise AssertionError(f"[lm] {cfg.name}: B4 launches per "
+                             f"step {launches}")
     real = attention.decode_attention
 
     def plain(q, k, v, lengths, softcap=0.0, window=0):
@@ -1385,90 +1706,61 @@ def phase_lm(arch: str, seed: int = 0) -> dict:
     finally:
         attention.decode_attention = real
     if any(plain_launches) or not bool(torch.isfinite(kern).all()):
-        raise AssertionError(f"[lm] {arch}: plain path launched "
+        raise AssertionError(f"[lm] {cfg.name}: plain path launched "
                              f"{plain_launches} or kernel logits not finite")
-    out["kernel_vs_plain"] = lm_logits_agreement(kern, ref, f"[lm] {arch}")
-    out["kernel_vs_plain"]["steps"] = LM_CHECK_STEPS
-    full = prefill_step(params, cfg, {"tokens": toks})
-    got, want = kern[-1].double().cpu().numpy(), full.double().cpu().numpy()
-    corr = float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
-    top1 = float((got.argmax(-1) == want.argmax(-1)).mean())
-    if not (corr > 0.99 and top1 >= 0.5):
-        raise AssertionError(f"[lm] {arch}: decode vs prefill correlation "
-                             f"{corr}, top-1 {top1}")
-    out["decode_vs_prefill"] = {"steps": LM_CHECK_STEPS, "corr": corr,
-                                "top1": top1}
-    out["b4_launches_per_step"] = 2 * n_attn
-    del kern, ref, full
-
-    # 5. gemma2-9b at a real context
-    if arch == "gemma2-9b":
-        out["context"] = _lm_context_step(cfg, params, seed)
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    del params
-    torch.cuda.empty_cache()
-    out["wall_s"] = time.perf_counter() - t0
+    if held:
+        out = lm_logits_agreement(kern, ref, f"[lm] {cfg.name}")
+    else:
+        k, r = kern.double(), ref.double()
+        out = {"corr": min(float(torch.corrcoef(torch.stack(
+                   [a.ravel(), b.ravel()]))[0, 1]) for a, b in zip(k, r)),
+               "rel": float(max((a - b).abs().max() / b.abs().max()
+                                for a, b in zip(k, r))),
+               "agree": float((k.argmax(-1) == r.argmax(-1)).double().mean()),
+               "held": False}
+    out.update(steps=LM_CHECK_STEPS, dtype=cfg.dtype, last=kern[-1])
     return out
 
 
-def _lm_context_step(cfg, params, seed: int) -> dict:
-    """One decode step at ``LM_CONTEXT``: lengths drawn in [lo, hi], caches
-    filled from a seeded generator; its device ms, B4's share of it, the
-    device busy share of the step's wall time, and its byte bound (every
-    weight once, and each K/V row the masks keep once)."""
-    import torch
-    from repro_torch.models.serve import decode_step, init_cache
-    B, L = LM_CONTEXT["slots"], LM_CONTEXT["max_len"]
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed + 2)
-    cache = init_cache(cfg, B, L, device="cuda")
-    for t in cache.values():
-        for part in t:
-            part.copy_(torch.randn(part.shape, generator=g, device="cuda"))
-    lens = torch.randint(LM_CONTEXT["lo"], LM_CONTEXT["hi"], (B,),
-                         generator=g, device="cuda")
-    toks = torch.randint(4, cfg.vocab, (B, 1), generator=g, device="cuda")
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
-
-    def step():
-        return decode_step(params, cfg, cache, toks, lens)[1]
-    logits = step()
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("[lm] context step: logits not finite")
-    ev = _device_events(step, 5)
-    dev_ms = sum(us for _, us in ev) / 5 / 1e3
-    b4_ms = sum(us for n, us in ev if "decode_attn" in n) / 5 / 1e3
-    wall_ms = _call_ms(step, reps=5, warm=1)
-    W = min(cfg.window, L)
-    kept = (lens + 1).clamp(max=L).sum() + (lens + 1).clamp(max=W).sum()
-    row_bytes = 2 * cfg.n_kv_heads * cfg.head_dim * 2      # K and V, bf16
-    kv_bytes = int(kept) * (cfg.n_layers // 2) * row_bytes
-    w_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    return {"slots": B, "max_len": L, "lengths": lens.tolist(),
-            "device_ms": dev_ms, "b4_ms": b4_ms, "b4_share": b4_ms / dev_ms,
-            "wall_ms": wall_ms, "device_busy_share": dev_ms / wall_ms,
-            "weight_bytes": w_bytes, "kv_bytes_kept": kv_bytes,
-            "cache_bytes": cache_bytes, "bound_ms": bound_ms,
-            "bound_share": bound_ms / dev_ms,
-            "b4_events_per_step": sum(1 for n, _ in ev if "decode_attn" in n)
-            / 5}
+def _dropless(cfg):
+    """A moe config whose capacity is the token count: no token dropped."""
+    import dataclasses
+    return dataclasses.replace(cfg,
+                               moe_capacity_factor=cfg.n_experts / cfg.top_k)
 
 
-def phase_lm_cli() -> dict:
-    """``python -m repro_torch.launch.serve --mode lm --smoke --arch
-    gemma2-9b`` in a subprocess on the card (D 16 in B4); it must exit 0."""
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--mode", "lm", "--smoke", "--arch", "gemma2-9b"],
-                          cwd=HERE, env=env, capture_output=True, text=True,
-                          timeout=300)
-    if proc.returncode != 0 or not proc.stdout.startswith("served 8 requests"):
-        raise AssertionError(f"[lm] the smoke CLI failed ({proc.returncode}):"
-                             f"\n{proc.stdout}\n{proc.stderr[-3000:]}")
-    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
-            "stdout": proc.stdout.strip().splitlines()}
+def _decode_vs_prefill(cfg, params, toks, last) -> dict:
+    """The last decode step's logits ``last`` against ``prefill_step`` over
+    the same tokens, at the reference's bar (correlation > 0.99, top-1
+    agreement >= 0.5).  A moe config is checked at its own capacity factor
+    first: prefill drops the tokens past each expert's capacity, decode
+    drops none, so where that bar fails the check is made again with a
+    dropless prefill (capacity = the token count) and the run says so."""
+    from repro_torch.models.serve import prefill_step
+
+    def bar(c):
+        full = prefill_step(params, c, {"tokens": toks})
+        got, want = last.double().cpu().numpy(), full.double().cpu().numpy()
+        return (float(np.corrcoef(got.ravel(), want.ravel())[0, 1]),
+                float((got.argmax(-1) == want.argmax(-1)).mean()))
+    corr, top1 = bar(cfg)
+    out = {"steps": LM_CHECK_STEPS, "corr": corr, "top1": top1}
+    if cfg.family == "moe":
+        out["capacity_factor"] = cfg.moe_capacity_factor
+        if not (corr > 0.99 and top1 >= 0.5):
+            dropless = _dropless(cfg)
+            out["at_capacity_factor"] = {"corr": corr, "top1": top1}
+            corr, top1 = bar(dropless)
+            out.update(corr=corr, top1=top1,
+                       capacity_factor=dropless.moe_capacity_factor,
+                       dropless_because=(
+                           "at the config's capacity factor the prefill "
+                           "drops tokens that decode keeps, and the bar "
+                           "failed"))
+    if not (corr > 0.99 and top1 >= 0.5):
+        raise AssertionError(f"[lm] {cfg.name}: decode vs prefill "
+                             f"correlation {corr}, top-1 {top1}")
+    return out
 
 
 # [train]: the train CLI at unionlm-100m's full width on UQ3 at the [uq3]
@@ -3298,6 +3590,21 @@ def main(argv=None) -> int:
     att_row["path"] = "[lm] gemma2-9b serve_lm at the CLI's defaults"
     att_row["launches_per_decode_step"] = {
         a: lm_out[a]["b4_launches_per_step"] for a in LM_ARCHS}
+
+    # 12b. the other families at full width: B4 on four more served paths
+    fam_out = {}
+    for arch, n_layers, calls in FAMILY_ARCHS:
+        fam_out[arch] = phase_lm_family(arch, n_layers, calls)
+        print(f"[lm-families] {arch} " + json.dumps(fam_out[arch]),
+              flush=True)
+    print("[lm-families] smoke CLI " + json.dumps(phase_lm_cli("zamba2-7b")),
+          flush=True)
+    mark("lm-families")
+    for arch, _, _ in FAMILY_ARCHS:
+        sl = fam_out[arch]["serve_lm"]
+        att_row["launches_by_path"][f"[lm-families] {arch} serve_lm"] = \
+            sl["b4_launches"]
+        att_row["launches_per_decode_step"][arch] = sl["b4_launches_per_step"]
 
     # 13. training at unionlm-100m's full width on UQ3 samples
     train_out = phase_train()

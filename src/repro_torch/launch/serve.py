@@ -7,13 +7,14 @@ of ``--slots`` decode slots, each holding one request of the queue
 consumes its prompt one token per step, then emits greedy tokens until
 ``--max-new`` or ``--max-len`` - 1, and is refilled from the queue.  The
 model starts from random weights (``init_params(cfg, seed)``); ``--arch``
-takes the ids of :mod:`repro_torch.configs` (``dense`` and ``gemma2``
-families), ``--smoke`` its reduced config.  Every decode attention runs the
-B4 kernel on the card::
+takes every id of :mod:`repro_torch.configs` (all seven families),
+``--smoke`` its reduced config.  Every decode attention runs the B4 kernel
+on the card (mamba2 has none)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --smoke \
-        --arch minitron-8b --device cpu --requests 2 --max-new 4 --slots 2
+        --arch whisper-medium --device cpu --requests 2 --max-new 4 --slots 2
 
 It prints the reference's two lines: requests served, decode steps,
 seconds, steps/s and the batch, then the first tokens of up to four

@@ -1,3 +1,4 @@
 """The LM side of the port: configs' ``ModelConfig``, layers, the forward
-pass for inference, KV caches and one-token decode (``dense`` and
-``gemma2``; the other families raise ``NotImplementedError``)."""
+pass of every family, KV and SSM caches, one-token decode and prefill, and
+the training loss (``dense`` and ``gemma2``; the other families' training
+raises ``NotImplementedError``)."""

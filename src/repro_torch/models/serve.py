@@ -1,28 +1,38 @@
-"""Serving: KV caches, prefill, and single-token decode (``dense`` and
-``gemma2``).
+"""Serving: KV/state caches, prefill, and single-token decode per family.
 
 The port's copy of the reference's ``repro/models/serve.py``.  Cache
 layouts (stacked on the layer axis, as the reference's):
 
-* dense/moe/vlm : k,v (L, B, S, KV, hd)
+* dense/moe/vlm : k,v (L, B, S, KV, hd); vlm's S is ``max_len +
+                  n_frontend_tokens``
 * gemma2        : local layers use a **window-capped ring buffer**
                   (L/2, B, W, KV, hd), W = min(window, max_len); only the
                   global half of the layers holds full-length KV
 * mamba2        : h (L, B, H, N, P) + conv tail (L, B, k-1, conv_dim)
 * zamba2        : per-group mamba states + one KV cache per shared-attention
-                  application (G, B, S, KV, hd)
-* encdec        : decoder self-KV + precomputed cross-attention K/V
+                  application (G, B, S, KV, hd), and the tail's states
+* encdec        : decoder self-KV + cross-attention K/V (L, B, Tf, KV, hd)
 
-:func:`cache_entries` and :func:`init_cache` give every family's shapes;
-:func:`decode_step` runs ``dense`` and ``gemma2`` (the other families raise
-``NotImplementedError``).  ``decode_step(params, cfg, cache, tokens,
-lengths)`` appends one token at position ``lengths`` (per batch row) and
-returns the cache and next-token logits.  The new K/V rows are written in
-place into the stacked buffers (``index_put_`` on the layer's view), so the
-returned cache holds the same storage as the one passed in.  Every decode
-attention goes through :func:`repro_torch.models.layers.decode_attention`,
-so through the B4 kernel on the card: two launches (plan + attention) per
-attention layer and step.
+``decode_step(params, cfg, cache, tokens, lengths)`` appends one token at
+position ``lengths`` (per batch row) and returns the cache and next-token
+logits, for every family.  The new K/V rows and conv tails are written in
+place into the stacked buffers (``index_put_``/``copy_`` on the layer's
+view), so the returned cache holds the same storage as the one passed in,
+with one exception that keeps the reference's dtypes: :func:`init_cache`
+makes every entry in ``cfg.compute_dtype``, and the SSM state ``h``
+(``h_tail``) comes back from each step in float32, as the reference's
+``mamba2_decode`` returns it; a step given a state of another dtype writes
+the new state into a new float32 buffer, so the state is never rounded to
+bf16 between steps.  Every decode attention goes through
+:func:`repro_torch.models.layers.decode_attention`, so through the B4
+kernel on the card: two launches (plan + attention) per call, one call
+per attention layer and step (zamba2: one per group; encdec: self and
+cross per layer; mamba2: none).
+
+As in the reference, decode never fills vlm's frontend rows nor encdec's
+cross caches ``xk``/``xv``: vlm decodes from position 0, and encdec's
+cross-attention attends over all ``n_frontend_tokens`` rows of whatever
+the cache holds (zeros from :func:`init_cache`).
 """
 
 from __future__ import annotations
@@ -33,8 +43,10 @@ import torch
 
 from ..device import resolve_device
 from .layers import decode_attention, rms_norm, rope, softcap, swiglu
-from .transformer import (ModelConfig, _embed_tokens, _sub, forward_hidden,
-                          layer, require_family)
+from .moe import moe_ffn
+from .ssm import mamba2_decode
+from .transformer import (ModelConfig, _embed_tokens, _sub, _tail_stack,
+                          forward_hidden, layer)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -168,21 +180,73 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def attention_calls_per_step(cfg: ModelConfig) -> int:
+    """Decode attentions (B4 calls on the card) in one :func:`decode_step`:
+    one per attention layer (gemma2's local and global layers alike), one
+    per zamba2 group (the shared block), two per encdec decoder layer (self
+    and cross), none for mamba2."""
+    return {"mamba2": 0, "zamba2": cfg.n_zamba_groups,
+            "encdec": 2 * cfg.n_layers}.get(cfg.family, cfg.n_layers)
+
+
+def _state_out(cache: Cache, name: str) -> torch.Tensor:
+    """The buffer a step writes SSM state ``name`` into: the cache's own
+    when it is float32, else a new float32 buffer of its shape."""
+    h = cache[name]
+    return h if h.dtype == torch.float32 else torch.empty(
+        h.shape, dtype=torch.float32, device=h.device)
+
+
+def _mamba_decode_into(p, x, h_in, conv, h_out, cfg: ModelConfig):
+    """One SSM layer's decode: reads the state ``h_in``, writes the new
+    state into ``h_out`` and the conv tail into ``conv`` in place."""
+    y, st = mamba2_decode(p, x, {"h": h_in, "conv": conv}, cfg.ssm_dims)
+    h_out.copy_(st["h"])
+    conv.copy_(st["conv"])
+    return x + y
+
+
+def _moe_decode(p, x, cfg: ModelConfig):
+    """The expert FFN at decode: dropless (capacity = the B tokens), plus
+    arctic's dense residual on the same normed input."""
+    hh = rms_norm(x, p["ln2"])
+    m, _ = moe_ffn(_sub(p, "moe_"), hh, cfg.moe_dims, capacity=x.shape[0])
+    if cfg.dense_residual:
+        m = m + swiglu(hh, p["res_w_gate"].to(x.dtype),
+                       p["res_w_up"].to(x.dtype), p["res_w_down"].to(x.dtype))
+    return m
+
+
+def _cross_decode(p, x, xk, xv, cfg: ModelConfig):
+    """encdec's cross-attention at decode: the query of the normed token
+    (no RoPE) over every one of the ``n_frontend_tokens`` rows of
+    ``xk``/``xv``."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (rms_norm(x, p["lnx"]) @ p["xq"].to(x.dtype)).reshape(B, H, hd)
+    full = torch.full((B,), xk.shape[1], dtype=torch.int32, device=x.device)
+    o = decode_attention(q, xk, xv, full)
+    return (o.reshape(B, H * hd) @ p["xo"].to(x.dtype))[:, None]
+
+
 def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                 cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[Cache, torch.Tensor]:
     """tokens (B,1), lengths (B,) -> (cache', logits (B,vocab) float32)."""
-    require_family(cfg, "decode_step")
     x = _embed_tokens(params, cfg, tokens)
-    stack = _sub(params, "blocks.")
-    if cfg.family == "dense":
+    fam = cfg.family
+    new = dict(cache)
+    if fam in ("dense", "moe", "vlm"):
+        stack = _sub(params, "blocks.")
         for i in range(cfg.n_layers):
             p = layer(stack, i)
             a, _, _ = _attn_decode(p, x, cache["k"][i], cache["v"][i],
                                    lengths, cfg)
             x = x + a
-            x = x + _mlp_decode(p, x, cfg)
-    else:                                   # gemma2: (local, global) pairs
+            x = x + (_moe_decode(p, x, cfg) if fam == "moe"
+                     else _mlp_decode(p, x, cfg))
+    elif fam == "gemma2":                   # (local, global) pairs
+        stack = _sub(params, "blocks.")
         for i in range(cfg.n_layers // 2):
             pe, po = layer(stack, 2 * i), layer(stack, 2 * i + 1)
             a, _, _ = _attn_decode(pe, x, cache["k_loc"][i],
@@ -193,8 +257,48 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                                    cache["v_glob"][i], lengths, cfg)
             x = x + rms_norm(a, po["ln1_post"])
             x = x + rms_norm(_mlp_decode(po, x, cfg), po["ln2_post"])
+    elif fam == "mamba2":
+        stack = _sub(params, "blocks.")
+        new["h"] = _state_out(cache, "h")
+        for i in range(cfg.n_layers):
+            x = _mamba_decode_into(layer(stack, i), x, cache["h"][i],
+                                   cache["conv"][i], new["h"][i], cfg)
+    elif fam == "zamba2":
+        shared = _sub(params, "shared.")
+        groups = _sub(params, "blocks.")
+        new["h"] = _state_out(cache, "h")
+        for g in range(cfg.n_zamba_groups):
+            gp = layer(groups, g)
+            for j in range(cfg.mamba_per_attn):
+                x = _mamba_decode_into(layer(gp, j), x, cache["h"][g, j],
+                                       cache["conv"][g, j], new["h"][g, j],
+                                       cfg)
+            a, _, _ = _attn_decode(shared, x, cache["k_sh"][g],
+                                   cache["v_sh"][g], lengths, cfg)
+            sh = x + a
+            sh = sh + _mlp_decode(shared, sh, cfg)
+            mix = torch.sigmoid(params["gate"][g].float()).to(x.dtype)
+            x = x + mix[None, None, :] * (sh - x)
+        if cfg.n_zamba_tail > 0:
+            tail = _tail_stack(params, cfg)
+            new["h_tail"] = _state_out(cache, "h_tail")
+            for i in range(cfg.n_zamba_tail):
+                x = _mamba_decode_into(layer(tail, i), x, cache["h_tail"][i],
+                                       cache["conv_tail"][i],
+                                       new["h_tail"][i], cfg)
+    elif fam == "encdec":
+        stack = _sub(params, "dec.")
+        for i in range(cfg.n_layers):
+            p = layer(stack, i)
+            a, _, _ = _attn_decode(p, x, cache["k"][i], cache["v"][i],
+                                   lengths, cfg)
+            x = x + a
+            x = x + _cross_decode(p, x, cache["xk"][i], cache["xv"][i], cfg)
+            x = x + _mlp_decode(p, x, cfg)
+    else:
+        raise ValueError(fam)
     x = rms_norm(x, params["final_norm"])
-    return dict(cache), _logits(params, cfg, x[:, 0])
+    return new, _logits(params, cfg, x[:, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +309,7 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
 def prefill_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Inference prefill: full-sequence forward -> last-token logits (B, V)
-    in float32."""
+    in float32.  ``batch["tokens"]`` (B, S), and for ``encdec`` and
+    ``vlm`` ``batch["frontend"]`` (B, n_frontend_tokens, d_model)."""
     x, _ = forward_hidden(params, cfg, batch)
     return _logits(params, cfg, x[:, -1, :])

@@ -1,29 +1,40 @@
 """Model assembly of the port: ``ModelConfig``, parameter shapes, the
 forward pass and the training loss.
 
-The port's copy of the reference's ``repro/models/transformer.py``.
-``ModelConfig``, :func:`param_entries` and :func:`logical_axes` cover every
-family (the config modules of :mod:`repro_torch.configs` need them); the
-forward pass runs the ``dense`` and ``gemma2`` families:
+The port's copy of the reference's ``repro/models/transformer.py``.  The
+forward pass (:func:`forward_hidden`) runs every family:
 
-* ``dense``  — pre-norm GQA transformer (minitron / granite / mistral-large
-               / unionlm)
-* ``gemma2`` — alternating local (sliding-window, even layers) and global
-               (odd layers) attention, logit softcaps, pre+post sublayer
-               norms, embedding scaling
+* ``dense``   — pre-norm GQA transformer (minitron / granite / mistral-large
+                / unionlm)
+* ``gemma2``  — alternating local (sliding-window, even layers) and global
+                (odd layers) attention, logit softcaps, pre+post sublayer
+                norms, embedding scaling
+* ``moe``     — dense attention + top-k expert FFN (phi3.5-moe / arctic;
+                arctic adds a parallel dense-residual FFN); the aux loss is
+                summed over the layers
+* ``mamba2``  — attention-free SSD stack
+* ``zamba2``  — mamba2 backbone with a single *shared* attention+MLP block
+                applied after every ``mamba_per_attn`` SSM layers, mixed
+                back in through a per-group ``sigmoid(gate)``
+* ``encdec``  — whisper-style encoder-decoder (the encoder consumes
+                precomputed frame embeddings, ``batch["frontend"]``; the
+                decoder cross-attends to its output)
+* ``vlm``     — paligemma: precomputed patch embeddings prepended to the
+                text (bidirectional over the ``prefix_len`` prefix)
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
-Parameters are a plain dict under the reference's names (``blocks.wq`` …)
-with the stacked ``(L, …)`` layout; where the reference scans over layers
-the port loops over the layers of the stacked tensors (``unbind``, whose
-backward stacks the per-layer gradients into one ``(L, …)`` gradient).
-With ``cfg.remat`` and gradients on, each block runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
-body; it changes memory, never values), and :func:`_chunked_xent`
-recomputes each loss chunk's logits in the backward, so the full
-``(B, S, V)`` logits never exist.  The reference's sharding constraints are
-no-ops without a mesh and are left out until model sharding is ported
-(ROADMAP §A 7).
+The training loss (:func:`forward_train`) runs ``dense`` and ``gemma2``;
+the other families' training is queued as ROADMAP §A 6b and raises
+``NotImplementedError`` naming it.  Parameters are a plain dict under the
+reference's names (``blocks.wq`` …) with the stacked ``(L, …)`` layout;
+where the reference scans over layers the port loops over the layers of
+the stacked tensors (``unbind``, whose backward stacks the per-layer
+gradients into one ``(L, …)`` gradient).  With ``cfg.remat`` and gradients
+on, each block (a zamba2 group, as the reference's scan body) runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``; it changes
+memory, never values), and :func:`_chunked_xent` recomputes each loss
+chunk's logits in the backward, so the full ``(B, S, V)`` logits never
+exist.  The reference's sharding constraints are no-ops without a mesh and
+are left out until model sharding is ported (ROADMAP §A 7).
 """
 
 from __future__ import annotations
@@ -38,18 +49,21 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from .layers import (fit_chunk, flash_attention_cv, rms_norm, rope, softcap,
                      swiglu)
-from .moe import MoEDims, moe_param_shapes
-from .ssm import SSMDims, ssm_param_shapes
+from .moe import MoEDims, moe_ffn, moe_param_shapes
+from .ssm import SSMDims, mamba2_block, ssm_param_shapes
 
 PAD_ID = 0
 
 
-def require_family(cfg: "ModelConfig", what: str) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet: moe, mamba2, zamba2, encdec and vlm are queued as ROADMAP §A 6."""
+def require_trainable(cfg: "ModelConfig", what: str) -> None:
+    """Raise ``NotImplementedError`` for a family whose training the port
+    does not run yet: moe, mamba2, zamba2, encdec and vlm are queued as
+    ROADMAP §A 6b (they serve: :func:`forward_hidden` and the decode path
+    run every family)."""
     if cfg.family not in ("dense", "gemma2"):
         raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not ported yet (ROADMAP §A 6)")
+            f"{what}: training of family {cfg.family!r} is not ported yet "
+            "(ROADMAP §A 6b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +262,15 @@ def param_dtype(cfg: ModelConfig, name: str, shape: Tuple[int, ...]
     law) in ``cfg.compute_dtype``, every other parameter in float32.  The
     reference keeps float32 masters and casts each weight to the
     activations' dtype at every use (``.astype(x.dtype)``) and each norm
-    scale to float32, so storing the cast gives exactly its values."""
+    scale to float32, so storing the cast gives exactly its values.
+
+    The one weight kept in float32 is the SSM's causal-conv kernel
+    ``conv_w``: the reference casts it to float32 at each use
+    (``repro/models/ssm.py:148`` and ``:174``,
+    ``params["conv_w"].astype(jnp.float32)``), so rounding it to bf16
+    would change the conv's values."""
+    if name.endswith("conv_w"):
+        return torch.float32
     return cfg.compute_dtype if init_law(name, shape) == "normal" \
         else torch.float32
 
@@ -275,7 +297,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None
     for k, (shp, _) in param_entries(cfg).items():
         law = init_law(k, shp)
         dt = param_dtype(cfg, k, shp)
-        if dtype is not None and law == "normal":
+        if dtype is not None and dt != torch.float32:
             dt = dtype
         t = torch.zeros(shp, dtype=dt, device=dev)
         if law == "log_uniform":
@@ -318,22 +340,31 @@ def layers(stack: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
 
 
 def _attention_sublayer(p, x, cfg: ModelConfig, positions, *, causal=True,
-                        window=0, prefix_len=0):
-    """Self-attention of one block.  The reference repeats K/V to the full
-    head count so that one head axis shards over its mesh; the port keeps
-    the KV heads (the same arithmetic: query head h reads KV head h // G)."""
+                        window=0, prefix_len=0, context=None):
+    """Self-attention of one block, or with ``context`` (B, T, d) the
+    decoder's cross-attention: the ``lnx``/``xq``/``xkv``/``xo`` weights,
+    K/V from ``context``, no RoPE, not causal, the KV chunk fitted to T.
+    The reference repeats K/V to the full head count so that one head axis
+    shards over its mesh; the port keeps the KV heads (the same arithmetic:
+    query head h reads KV head h // G)."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, p["ln1"])
-    q = (h @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    kv = (h @ p["wkv"].to(x.dtype)).reshape(B, S, 2, KV, hd)
+    cross = context is not None
+    h = rms_norm(x, p["lnx" if cross else "ln1"])
+    q = (h @ p["xq" if cross else "wq"].to(x.dtype)).reshape(B, S, H, hd)
+    src = context if cross else h
+    T = src.shape[1]
+    kv = (src @ p["xkv" if cross else "wkv"].to(x.dtype)).reshape(
+        B, T, 2, KV, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention_cv(q, k, v, bool(causal), int(window or 0),
-                           float(cfg.attn_softcap), fit_chunk(S, cfg.q_chunk),
-                           fit_chunk(S, cfg.kv_chunk), int(prefix_len))
-    out = o.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention_cv(q, k, v, bool(causal and not cross),
+                           int(window or 0), float(cfg.attn_softcap),
+                           fit_chunk(S, cfg.q_chunk),
+                           fit_chunk(T, cfg.kv_chunk), int(prefix_len))
+    out = o.reshape(B, S, H * hd) @ p["xo" if cross else "wo"].to(x.dtype)
     return out.to(x.dtype)
 
 
@@ -351,6 +382,43 @@ def _dense_block(p, x, cfg: ModelConfig, positions, window=0, prefix_len=0):
     return x + m
 
 
+def _moe_block(p, x, cfg: ModelConfig, positions
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention, then the expert FFN (plus arctic's dense residual FFN on
+    the same normed input); returns (x', the layer's aux loss)."""
+    x = x + _attention_sublayer(p, x, cfg, positions)
+    h = rms_norm(x, p["ln2"])
+    out, aux = moe_ffn(_sub(p, "moe_"), h, cfg.moe_dims)
+    if cfg.dense_residual:
+        out = out + swiglu(h, p["res_w_gate"].to(x.dtype),
+                           p["res_w_up"].to(x.dtype),
+                           p["res_w_down"].to(x.dtype))
+    return x + out, aux
+
+
+def _decoder_block(p, x, cfg: ModelConfig, positions, context):
+    """encdec's decoder layer: causal self-attention, cross-attention to
+    the encoder's output, then the MLP (no post norms)."""
+    x = x + _attention_sublayer(p, x, cfg, positions)
+    x = x + _attention_sublayer(p, x, cfg, positions, context=context)
+    return x + swiglu(rms_norm(x, p["ln2"]), p["w_gate"].to(x.dtype),
+                      p["w_up"].to(x.dtype), p["w_down"].to(x.dtype))
+
+
+def _mamba_layer(p, x, cfg: ModelConfig):
+    return x + mamba2_block(p, x, cfg.ssm_dims, chunk=cfg.ssd_chunk)
+
+
+def _zamba_group(mamba_p, shared, gate, x, cfg: ModelConfig, positions):
+    """``mamba_per_attn`` SSM layers, then the shared attention+MLP block,
+    mixed back in through ``sigmoid(gate)`` (the group's (d,) gate)."""
+    for p in layers(mamba_p):
+        x = _mamba_layer(p, x, cfg)
+    sh = _dense_block(shared, x, cfg, positions)
+    mix = torch.sigmoid(gate.float()).to(x.dtype)[None, None, :]
+    return x + mix * (sh - x)
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
     x = params["embed"][tokens.long()].to(cfg.compute_dtype)
@@ -361,26 +429,88 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
     return x
 
 
+def _tail_stack(params: Dict[str, torch.Tensor], cfg: ModelConfig
+                ) -> Dict[str, torch.Tensor]:
+    """zamba2's ``n_zamba_tail`` trailing SSM layers (the stack holds at
+    least one, unused when the tail is empty)."""
+    return {k: v[:cfg.n_zamba_tail] for k, v in _sub(params, "tail.").items()}
+
+
 def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward: returns (final hidden (B,S,d), moe aux loss)."""
-    require_family(cfg, "forward_hidden")
+    """Backbone forward: returns (final hidden (B,S,d), moe aux loss).
+    ``batch["tokens"]`` (B, S); ``encdec`` and ``vlm`` also take
+    ``batch["frontend"]`` (B, n_frontend_tokens, d): the encoder's frames
+    or the prepended patch embeddings (vlm's hidden is (B, Np + S, d))."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i, p in enumerate(layers(_sub(params, "blocks."))):
-        # gemma2: even layers local (sliding window), odd layers global
-        win = cfg.window if cfg.family == "gemma2" and i % 2 == 0 else 0
+
+    def run(fn, *args):
         if remat:
-            x = checkpoint(lambda h, p=p, win=win: _dense_block(
-                p, h, cfg, pos, window=win), x, use_reentrant=False)
-        else:
-            x = _dense_block(p, x, cfg, pos, window=win)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def positions(n, dev):
+        return torch.arange(n, device=dev)[None].expand(B, n)
+
+    fam = cfg.family
+    aux = None
+    if fam == "encdec":
+        enc = batch["frontend"].to(cfg.compute_dtype)         # (B,Tf,d)
+        enc_pos = positions(enc.shape[1], enc.device)
+        for p in layers(_sub(params, "enc.")):
+            enc = run(lambda h, p=p: _dense_block(p, h, cfg, enc_pos), enc)
+        enc_out = rms_norm(enc, params["enc_final_norm"])
+        x = _embed_tokens(params, cfg, tokens)
+        pos = positions(S, x.device)
+        for p in layers(_sub(params, "dec.")):
+            x = run(lambda h, c, p=p: _decoder_block(p, h, cfg, pos, c),
+                    x, enc_out)
+    elif fam == "vlm":
+        fe = batch["frontend"].to(cfg.compute_dtype)          # (B,Np,d)
+        x = torch.cat([fe, _embed_tokens(params, cfg, tokens)], dim=1)
+        pos = positions(x.shape[1], x.device)
+        for p in layers(_sub(params, "blocks.")):
+            x = run(lambda h, p=p: _dense_block(
+                p, h, cfg, pos, prefix_len=cfg.prefix_len), x)
+    elif fam == "mamba2":
+        x = _embed_tokens(params, cfg, tokens)
+        for p in layers(_sub(params, "blocks.")):
+            x = run(lambda h, p=p: _mamba_layer(p, h, cfg), x)
+    elif fam == "zamba2":
+        x = _embed_tokens(params, cfg, tokens)
+        pos = positions(S, x.device)
+        shared = _sub(params, "shared.")
+        for gp, g in zip(layers(_sub(params, "blocks.")),
+                         params["gate"].unbind(0)):
+            x = run(lambda h, gp=gp, g=g: _zamba_group(gp, shared, g, h, cfg,
+                                                       pos), x)
+        if cfg.n_zamba_tail > 0:
+            for p in layers(_tail_stack(params, cfg)):
+                x = run(lambda h, p=p: _mamba_layer(p, h, cfg), x)
+    elif fam == "moe":
+        x = _embed_tokens(params, cfg, tokens)
+        pos = positions(S, x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in layers(_sub(params, "blocks.")):
+            x, a = run(lambda h, p=p: _moe_block(p, h, cfg, pos), x)
+            aux = aux + a
+    elif fam in ("dense", "gemma2"):
+        x = _embed_tokens(params, cfg, tokens)
+        pos = positions(S, x.device)
+        for i, p in enumerate(layers(_sub(params, "blocks."))):
+            # gemma2: even layers local (sliding window), odd layers global
+            win = cfg.window if fam == "gemma2" and i % 2 == 0 else 0
+            x = run(lambda h, p=p, win=win: _dense_block(
+                p, h, cfg, pos, window=win), x)
+    else:
+        raise ValueError(fam)
     x = rms_norm(x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _xent_chunk(xi: torch.Tensor, embed: torch.Tensor, ti: torch.Tensor,
@@ -418,7 +548,7 @@ def forward_train(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (loss, metrics). batch: tokens/targets (B, S)."""
-    require_family(cfg, "forward_train")
+    require_trainable(cfg, "forward_train")
     x, aux_total = forward_hidden(params, cfg, batch)
     nll_sum, cnt = _chunked_xent(x, params["embed"], batch["targets"], cfg)
     loss = nll_sum / torch.clamp(cnt, min=1.0)

@@ -17,9 +17,9 @@ device-loop cases capture the union engine's round as a CUDA graph
 under both plans and on UQ2 rejection mode.  Decode attention runs every
 case of ``cases.ATTENTION_CASES``, the attention shapes of every config
 among them; a shape the kernel does not take must raise and launch
-nothing; and nine ``decode_step``s of four smoke configs through the
-kernel must agree with the same steps through the plain version
-(``cases.lm_logits_agreement``).
+nothing; and nine ``decode_step``s of the smoke configs of every family
+through the kernel must agree with the same steps through the plain
+version (``cases.lm_logits_agreement``; mamba2 launches none).
 
 Without a card every test here skips.
 """
@@ -141,13 +141,18 @@ def test_decode_attention_refuses_other_shapes_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["minitron-8b", "granite-20b",
-                                  "mistral-large-123b", "gemma2-9b"])
+                                  "mistral-large-123b", "gemma2-9b",
+                                  "phi3.5-moe-42b-a6.6b", "arctic-480b",
+                                  "mamba2-780m", "zamba2-7b",
+                                  "whisper-medium", "paligemma-3b"])
 def test_decode_step_on_card_equals_plain(monkeypatch, arch):
     """Nine decode steps of a smoke config (bf16) through B4 and through
     ``decode_attention_plain``, on the same parameters and tokens: two
-    launches per attention layer and step, logits within
-    ``cases.LM_PATH_*``.  Row 1 starts at length 30, past gemma2's smoke
-    window 32 by step 3, so its local ring wraps."""
+    launches per decode attention and step (``serve.attention_calls_per_
+    step``: one per attention layer, one per zamba2 group, two per encdec
+    layer, none for mamba2), logits within ``cases.LM_PATH_*``.  Row 1
+    starts at length 30, past gemma2's smoke window 32 by step 3, so its
+    local ring wraps."""
     _need_card()
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import serve, transformer
@@ -175,7 +180,8 @@ def test_decode_step_on_card_equals_plain(monkeypatch, arch):
             logits.append(lg)
         torch.cuda.synchronize()
         launched = probe.launch_counts["decode_attention"] - before
-        assert launched == (2 * T * cfg.n_layers if mode == "kernel" else 0)
+        calls = serve.attention_calls_per_step(cfg)
+        assert launched == (2 * T * calls if mode == "kernel" else 0)
         runs[mode] = torch.stack(logits)
     assert bool(torch.isfinite(runs["kernel"]).all())
     lm_logits_agreement(runs["kernel"], runs["plain"], arch)

@@ -1,5 +1,6 @@
 """The port's LM side against the JAX package: configs, layers, the forward
-pass, prefill and decode (``dense`` and ``gemma2``).
+pass, prefill and decode (``dense`` and ``gemma2``; the other families are
+in ``test_torch_lm_families.py``).
 
 Both packages get the same parameters: the reference's
 ``init_params(cfg, seed=0)`` as numpy, carried into the port by
@@ -111,11 +112,14 @@ def test_registry_equals_reference():
     assert rconfigs.all_cells() == pconfigs.all_cells()
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b", "minitron-8b",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                                  "whisper-medium", "paligemma-3b"])
 def test_init_params_law(arch):
     """The reference's law on the port's generator: zeros for norms and
-    gates, weights of std 1/sqrt(fan_in) stored in the compute dtype, the
-    same seed the same values."""
+    gates, weights of std 1/sqrt(fan_in) stored in the compute dtype (the
+    SSM's ``conv_w`` in float32, as the reference casts it at each use),
+    the same seed the same values; one config of every family."""
     cfg = pconfigs.get_smoke_config(arch)
     a = ptrans.init_params(cfg, seed=3, device="cpu")
     b = ptrans.init_params(cfg, seed=3, device="cpu")
@@ -128,7 +132,8 @@ def test_init_params_law(arch):
         elif law == "log_uniform":
             assert bool(((a[k] >= 0) & (a[k] <= np.log(16.0))).all())
         else:
-            assert a[k].dtype == cfg.compute_dtype
+            assert a[k].dtype == ptrans.param_dtype(cfg, k, shp) == (
+                torch.float32 if k.endswith("conv_w") else cfg.compute_dtype)
             fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
             std = float(a[k].float().std()) * np.sqrt(fan_in)
             assert 0.8 < std < 1.2, (k, std)
@@ -137,19 +142,22 @@ def test_init_params_law(arch):
 
 
 def test_other_families_raise_not_implemented():
+    """The five families serve (forward, prefill, decode: see
+    ``test_torch_lm_families.py``) but do not train yet: ``forward_train``
+    raises naming their ROADMAP item."""
     for arch in ("phi3.5-moe-42b-a6.6b", "mamba2-780m", "zamba2-7b",
                  "whisper-medium", "paligemma-3b"):
         cfg = pconfigs.get_smoke_config(arch)
         toks = torch.ones((1, 4), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ptrans.forward_hidden({}, cfg, {"tokens": toks})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pserve.decode_step({}, cfg, {}, toks[:, :1], toks[:, 0])
-        # every family's caches have the reference's shapes
+        with pytest.raises(NotImplementedError, match="ROADMAP §A 6b"):
+            ptrans.forward_train({}, cfg, {"tokens": toks, "targets": toks})
+        # every family's caches have the reference's shapes and dtypes
         cache = pserve.init_cache(cfg, 2, 16, device="cpu")
+        want = rserve.init_cache(rconfigs.get_smoke_config(arch), 2, 16)
         assert {k: tuple(v.shape) for k, v in cache.items()} == {
-            k: s for k, (s, _) in rserve.cache_entries(
-                rconfigs.get_smoke_config(arch), 2, 16).items()}
+            k: tuple(v.shape) for k, v in want.items()}
+        assert {k: str(v.dtype).split(".")[-1] for k, v in cache.items()} \
+            == {k: str(v.dtype) for k, v in want.items()}
 
 
 # ---------------------------------------------------------------------------
