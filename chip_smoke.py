@@ -164,9 +164,11 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    phi3.5-moe's prefill dropless where its capacity factor drops tokens
    that decode keeps); then ``python -m repro_torch.launch.serve --mode lm
    --smoke --arch zamba2-7b`` in a subprocess, which must exit 0;
-13. training (``[train]``) — one float32 train step of the unionlm and
-   gemma2 smoke configs from numpy parameters on the card and on the CPU,
-   held to the CPU tests' limits; then ``repro_torch.launch.train.main``
+13. training (``[train]``) — one float32 train step of a smoke config of
+   each of the seven families (unionlm, gemma2, phi3.5-moe, mamba2,
+   zamba2, whisper and paligemma, with frontend embeddings for the last
+   two) from numpy parameters on the card and on the CPU, held to the CPU
+   tests' limits; then ``repro_torch.launch.train.main``
    at unionlm-100m's full width on UQ3 at scale 100 (B 16, S 1024, 30
    steps, a checkpoint every 10) with the launch counts set to 0 just
    before and read just after (``probe_pick`` > 0; UQ3 runs no
@@ -177,7 +179,23 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    steps under the profiler (device ms, busy share, kernels per step); and
    a ``TrainSupervisor`` on the same pipeline with one failure injected
    after its first checkpoint: one restart, the target step, and the state
-   restored from ``LATEST`` bit-equal to the state saved.
+   restored from ``LATEST`` bit-equal to the state saved;
+14. the other families' training (``[train-families]``) — mamba2-780m
+   (through ``launch.train.main``, B 8 × S 1024), zamba2-7b (45 of 81
+   layers), whisper-medium (B 8 × S 448 + 1,500 frames), paligemma-3b (B 4
+   × S 512 + 256 patches) and phi3.5-moe (2 of 32 layers) at their
+   published widths from random init, 10 steps each on UQ3 samples at
+   scale 100, one model at a time: steady tokens/s, device ms, busy share
+   and kernels per step over two profiled steps, peak memory, the first
+   and last loss (the last must be lower), ``probe_pick`` > 0 on each
+   model's pipeline (counts set to 0 just before its steps);
+15. model sharding (``[model-sharding]``) — ``moe_ffn_dist`` at
+   phi3.5-moe's MoE widths (d 4096, 16 experts, d_ff 6400, top-2; B 4 × S
+   256, float32) on a world-1 mesh and on two gloo ranks on the card
+   (model 2), each against ``moe_ffn`` with the same capacity (outputs,
+   aux and every rank's gradients of the four weights and x, within
+   ``MS_TOL`` of the largest value), and ``compressed_psum``
+   on the two ranks within the reference's bar.
 
 Every served path runs the engine's default round loop,
 ``fused_rounds="device"``: one round captured as a CUDA graph per capacity
@@ -218,7 +236,7 @@ its time at walk width (``walk_ms`` and the ``walk_`` keys).  The
 counts under ``launches_by_path`` and ``launches_per_decode_step`` beside
 them; the
 ``sorted_probe`` and ``probe_pick`` rows carry ``[train]``'s counts under
-``launches_by_path`` too.
+``launches_by_path`` too, and ``probe_pick``'s ``[train-families]``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -1768,13 +1786,25 @@ def _decode_vs_prefill(cfg, params, toks, last) -> dict:
 TRAIN_ARGV = ["--arch", "unionlm-100m", "--workload", "UQ3", "--scale",
               "100", "--batch", "16", "--seq", "1024", "--steps", "30",
               "--checkpoint-every", "10"]
-TRAIN_PARITY_ARCHS = ("unionlm-100m", "gemma2-9b")
-# tests/test_torch_train.py's limits: float32 values, gradients (the
-# optimizer slots), and the whole step (each parameter within 2·lr, at
-# least 99.9 % of them within rtol 1e-4 and atol 1e-6)
+# one smoke config of each of the seven families
+TRAIN_PARITY_ARCHS = ("unionlm-100m", "gemma2-9b", "phi3.5-moe-42b-a6.6b",
+                      "mamba2-780m", "zamba2-7b", "whisper-medium",
+                      "paligemma-3b")
+# the CPU tests' limits (tests/test_torch_train.py, tests/test_torch_train_
+# families_step.py): float32 values, gradients (the optimizer slots), and
+# the whole step (each parameter within 2·lr, at least 99.9 % of them
+# within rtol 1e-4 and atol 1e-6).  The SSM smoke models' float32
+# gradients are ill-conditioned: there the grad-norm and each slot within
+# TRAIN_SPREAD_FACTOR × the reference's own float32 spread (its jitted
+# against its eager gradients, worst tensor, relative to its largest
+# value; twice that for v), and every parameter outside rtol 1e-4 one
+# whose gradient is within that spread of 0 or within TRAIN_NEAR_EPS ×
+# Adam's eps
 TRAIN_F32 = {"rtol": 1e-4, "atol": 1e-4}
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-5
 TRAIN_STEP_RTOL, TRAIN_STEP_ATOL, TRAIN_STEP_SHARE = 1e-4, 1e-6, 0.999
+TRAIN_F32_SPREAD = {"mamba2-780m": 1.44e-4, "zamba2-7b": 2.20e-4}
+TRAIN_SPREAD_FACTOR, TRAIN_SPREAD_CORR, TRAIN_NEAR_EPS = 4.0, 0.99999, 100
 
 
 def _numpy_params(cfg, seed: int) -> dict:
@@ -1792,9 +1822,11 @@ def _numpy_params(cfg, seed: int) -> dict:
 
 def _train_parity(arch: str) -> dict:
     """One float32 train step of ``arch``'s smoke config from numpy
-    parameters and batch, on the card and on the CPU, held to the CPU
-    tests' limits (loss, grad-norm and lr as values, the optimizer slots
-    as gradients, the parameters under the whole-step limit)."""
+    parameters and batch (with frontend embeddings for encdec and vlm), on
+    the card and on the CPU, held to the CPU tests' limits (loss,
+    grad-norm and lr as values, the optimizer slots as gradients, the
+    parameters under the whole-step limit; ``TRAIN_F32_SPREAD`` for the
+    SSM models)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1807,6 +1839,10 @@ def _train_parity(arch: str) -> dict:
     rng = np.random.default_rng(2)
     batch = {"tokens": rng.integers(4, cfg.vocab, (2, 64)).astype(np.int32),
              "targets": rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)}
+    if cfg.frontend != "none":
+        batch["frontend"] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    spread = TRAIN_F32_SPREAD.get(arch)
     out = {}
     for dev in ("cpu", "cuda"):
         params = params_from_numpy(cfg, nparams, dev, dtype=torch.float32)
@@ -1816,31 +1852,54 @@ def _train_parity(arch: str) -> dict:
             k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
         out[dev] = (state, {k: float(v) for k, v in metrics.items()})
     (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    lim = None if spread is None else TRAIN_SPREAD_FACTOR * spread
     for k in ("loss", "grad_norm", "lr"):
+        tol = ({"rtol": lim} if k == "grad_norm" and lim is not None
+               else TRAIN_F32)
         np.testing.assert_allclose(gm[k], cm[k], err_msg=f"[train] {arch} {k}",
-                                   **TRAIN_F32)
-    worst, outside, n = 0.0, 0, 0
+                                   **tol)
+    worst, outside, unexplained, n = 0.0, 0, 0, 0
     for k, want in cs["params"].items():
         want = want.double().numpy()
         d = np.abs(gs["params"][k].cpu().double().numpy() - want)
         worst = max(worst, float(d.max()))
-        outside += int((d > TRAIN_STEP_ATOL + TRAIN_STEP_RTOL
-                        * np.abs(want)).sum())
+        off = d > TRAIN_STEP_ATOL + TRAIN_STEP_RTOL * np.abs(want)
+        outside += int(off.sum())
+        if lim is not None:
+            m = np.abs(cs["opt"][f"m.{k}"].double().numpy())
+            near0 = (m <= lim * m.max()) | (
+                m / (1 - tc.opt.b1) <= TRAIN_NEAR_EPS * tc.opt.eps)
+            unexplained += int((off & ~near0).sum())
         n += want.size
-    if worst > 2 * cm["lr"] or outside > (1 - TRAIN_STEP_SHARE) * n:
+    if worst > 2 * cm["lr"] or unexplained or (
+            lim is None and outside > (1 - TRAIN_STEP_SHARE) * n):
         raise AssertionError(f"[train] {arch}: card step differs from the "
                              f"CPU step: max {worst}, {outside} of {n} "
-                             "parameters outside")
+                             f"parameters outside ({unexplained} with a "
+                             "gradient away from 0)")
+    worst_slot = 0.0
     for k, want in cs["opt"].items():
-        want = want.numpy()
-        np.testing.assert_allclose(
-            gs["opt"][k].cpu().numpy(), want, rtol=TRAIN_GRAD_RTOL,
-            atol=TRAIN_GRAD_ATOL * np.abs(want).max(),
-            err_msg=f"[train] {arch} {k}")
+        want = want.double().numpy()
+        got = gs["opt"][k].cpu().double().numpy()
+        rel = float(np.abs(got - want).max() / max(np.abs(want).max(),
+                                                   1e-30))
+        worst_slot = max(worst_slot, rel)
+        if lim is None:
+            np.testing.assert_allclose(
+                got, want, rtol=TRAIN_GRAD_RTOL,
+                atol=TRAIN_GRAD_ATOL * np.abs(want).max(),
+                err_msg=f"[train] {arch} {k}")
+            continue
+        corr = (np.corrcoef(got.ravel(), want.ravel())[0, 1]
+                if want.size > 1 and want.std() > 0 else 1.0)
+        if rel > lim * (2 if k.startswith("v.") else 1) or \
+                corr <= TRAIN_SPREAD_CORR:
+            raise AssertionError(f"[train] {arch} {k}: card slot {rel} of "
+                                 f"the largest from the CPU's, corr {corr}")
     return {"loss": [cm["loss"], gm["loss"]],
             "grad_norm": [cm["grad_norm"], gm["grad_norm"]],
             "param_max_abs_diff": worst, "params_outside": outside,
-            "n_params": n}
+            "n_params": n, "slot_max_rel_diff": worst_slot}
 
 
 def _cuda_events(fn):
@@ -1859,6 +1918,44 @@ def _cuda_events(fn):
     if not ev:
         raise AssertionError("torch.profiler recorded no device activity")
     return ev
+
+
+def _profile_steps(step, state, batches):
+    """Train steps over ``batches`` under a device-only profiler, then
+    again without it for the wall: (the state after them, device ms, wall
+    ms and busy share per step, kernels per step, cuBLAS's share and the
+    costliest kernels)."""
+    import torch
+    box, n = [state], len(batches)
+    del state                   # the box holds the one live state
+
+    def steps():
+        for b in batches:
+            box[0], _ = step(box[0], b)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = _cuda_events(steps)
+    prof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    dev_ms = sum(us for _, us in ev) / n / 1e3
+    by_name: dict = {}
+    for name, us in ev:
+        by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / n / 1e3
+    # cuBLAS's kernels: sm80_xmma_gemm_* (float32) and nvjet_* (bf16 on
+    # Hopper)
+    gemm = [(nm, us) for nm, us in ev
+            if any(t in nm for t in ("gemm", "xmma", "cutlass", "nvjet"))]
+    return box[0], {
+        "device_ms_per_step": dev_ms, "wall_ms_per_step": wall_ms,
+        "device_busy_share": dev_ms / wall_ms,
+        "device_events_per_step": len(ev) / n,
+        "gemm_ms_per_step": sum(us for _, us in gemm) / n / 1e3,
+        "f32_gemm_ms_per_step": sum(us for nm, us in gemm
+                                    if "f32f32" in nm) / n / 1e3,
+        "profiler_s": prof_s,
+        "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
 
 
 def _uq1_pipeline(batches: int = 2) -> dict:
@@ -1962,38 +2059,9 @@ def phase_train(seed: int = 0) -> dict:
         batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
                     zip(("tokens", "targets"), pipe.next_batch())}
                    for _ in range(2)]
-        box = [state]
-
-        def two_steps():
-            for b in batches:
-                box[0], m = step(box[0], b)
-            torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        ev = _cuda_events(two_steps)
-        prof_s = time.perf_counter() - t2
-        t2 = time.perf_counter()
-        two_steps()
-        wall_ms = (time.perf_counter() - t2) * 1e3 / 2
-        dev_ms = sum(us for _, us in ev) / 2 / 1e3
-        by_name: dict = {}
-        for name, us in ev:
-            by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 2 / 1e3
-        # cuBLAS's kernels: sm80_xmma_gemm_* (float32) and nvjet_* (bf16
-        # on Hopper)
-        gemm = [(n, us) for n, us in ev
-                if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet"))]
-        gemm_ms = sum(us for _, us in gemm) / 2 / 1e3
-        f32_gemm_ms = sum(us for n, us in gemm if "f32f32" in n) / 2 / 1e3
-        out["profile"] = {
-            "device_ms_per_step": dev_ms, "wall_ms_per_step": wall_ms,
-            "device_busy_share": dev_ms / wall_ms,
-            "device_events_per_step": len(ev) / 2,
-            "gemm_ms_per_step": gemm_ms,
-            "f32_gemm_ms_per_step": f32_gemm_ms, "profiler_s": prof_s,
-            "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
+        state, out["profile"] = _profile_steps(step, state, batches)
 
         # a supervised restart on the same pipeline
-        state = box[0]
         ck = Checkpointer(os.path.join(ckdir, "restart"), keep=2)
         saved, restored = {}, {}
         real_save, real_restore = ck.save, ck.restore
@@ -2045,6 +2113,325 @@ def phase_train(seed: int = 0) -> dict:
                           "seconds": time.perf_counter() - t3}
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# [train-families]: a model of each other family at its published width
+# from random init on the card, 10 steps on UQ3 samples at scale 100 (the
+# train CLI's pipeline), one model at a time: (arch, n_layers cut or None,
+# B, S).  The state takes 16 B a parameter (float32 master, AdamW's two
+# float32 slots, the compute-dtype copy and its gradient; the update is in
+# place), ~18 B at the step's peak with the clipped gradients: a full-depth
+# zamba2-7b (81 layers, 5.6 B parameters) or phi3.5-moe (32 layers, ~42 B)
+# does not fit on 80 GB, so zamba2-7b runs 45 layers (7 of its 13 groups
+# and the 3 tail SSM layers) and phi3.5-moe 2 (printed under "reduced")
+TRAIN_FAMILIES = (("mamba2-780m", None, 8, 1024), ("zamba2-7b", 45, 4, 1024),
+                  ("whisper-medium", None, 8, 448),
+                  ("paligemma-3b", None, 4, 512),
+                  ("phi3.5-moe-42b-a6.6b", 2, 4, 1024))
+TRAIN_FAMILY_STEPS = 10
+
+
+def _family_run(cfg, tc, pipe, fe, seed: int) -> dict:
+    """``TRAIN_FAMILY_STEPS`` steps of ``cfg`` from a random state on the
+    card over ``pipe``'s batches (+ the frontend ``fe``), timed as the
+    train CLI times them (the step, its batch's upload and its loss read;
+    the batch drawn before), then two profiled steps."""
+    import torch
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    state = init_train_state(cfg, tc, seed=seed, device="cuda")
+    step = make_train_step(cfg, tc)
+
+    def upload(toks, tgts):
+        b = {"tokens": torch.as_tensor(toks, device="cuda"),
+             "targets": torch.as_tensor(tgts, device="cuda")}
+        if fe is not None:
+            b["frontend"] = fe
+        return b
+    losses, step_s = [], []
+    for _ in range(TRAIN_FAMILY_STEPS):
+        toks, tgts = pipe.next_batch()
+        t0 = time.perf_counter()
+        state, m = step(state, upload(toks, tgts))
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    return {"state": state, "train_step": step, "losses": losses,
+            "step_seconds": step_s,
+            "batches": [upload(*pipe.next_batch()) for _ in range(2)]}
+
+
+def phase_train_families(seed: int = 0) -> dict:
+    """``TRAIN_FAMILIES`` on the card: mamba2-780m through
+    ``launch.train.main`` as a user runs it (B 8, S 1024, UQ3 at scale
+    100), the others over the same sampler with a ``TokenEncoder`` at
+    their vocab (whisper's 1,500 frames and paligemma's 256 patches from a
+    seeded generator in the compute dtype, as ``[lm-families]`` stubs
+    them).  For each: the launch counts set to 0 just before its steps and
+    read just after (``probe_pick`` > 0), steady tokens/s (steps 2-10),
+    device ms, busy share and kernels per step over two profiled steps,
+    peak memory, the first and last loss (the last must be lower).  Each
+    model is freed before the next is made."""
+    import dataclasses
+    import gc
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.encode import TokenEncoder
+    from repro_torch.data.pipeline import UnionSamplePipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.transformer import param_entries
+    from repro_torch.train.optimizer import OptConfig, default_opt_for
+    from repro_torch.train.train_step import TrainConfig
+    out, sampler = {}, None
+    ckdir = os.path.join(HERE, "build", "train_families_ckpt")
+    for arch, n_layers, B, S in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fe = None
+        if cfg.frontend != "none":
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            fe = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                             generator=gen, device="cuda",
+                             dtype=cfg.compute_dtype)
+        build.reset_launch_counts()
+        if sampler is None:
+            shutil.rmtree(ckdir, ignore_errors=True)
+            try:
+                res = train_main([
+                    "--arch", arch, "--workload", "UQ3", "--scale", "100",
+                    "--batch", str(B), "--seq", str(S), "--steps",
+                    str(TRAIN_FAMILY_STEPS), "--device", "cuda",
+                    "--checkpoint-dir", ckdir])
+            finally:
+                shutil.rmtree(ckdir, ignore_errors=True)
+            sampler, attrs = res["pipeline"].sampler, \
+                res["pipeline"].encoder.attrs
+            res["batches"] = [{k: torch.as_tensor(v, device="cuda")
+                               for k, v in zip(("tokens", "targets"),
+                                               res["pipeline"].next_batch())}
+                              for _ in range(2)]
+            pipe = res["pipeline"]
+            via = "launch.train.main"
+        else:
+            tc = TrainConfig(opt=OptConfig(kind=default_opt_for(arch).kind),
+                             warmup_steps=max(TRAIN_FAMILY_STEPS // 20, 2),
+                             total_steps=TRAIN_FAMILY_STEPS)
+            pipe = UnionSamplePipeline(
+                sampler, TokenEncoder(attrs, vocab_size=cfg.vocab), batch=B,
+                seq_len=S)
+            res = _family_run(cfg, tc, pipe, fe, seed)
+            via = "init_train_state + make_train_step"
+        launches = _launches()
+        losses, step_s = res["losses"], res["step_seconds"]
+        if launches["probe_pick"] <= 0:
+            raise AssertionError(f"[train-families] {arch}: the UQ3 pipeline "
+                                 "launched no probe_pick")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"[train-families] {arch}: loss did not "
+                                 f"fall: {losses[0]} -> {losses[-1]}")
+        tok = B * S
+        # the run's state is handed over, not kept: one state fits, not two
+        state, prof = _profile_steps(res.pop("train_step"), res.pop("state"),
+                                     res.pop("batches"))
+        row = {"arch": arch, "family": cfg.family, "via": via,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "batch": B, "seq": S,
+               "frontend_tokens": cfg.n_frontend_tokens,
+               "n_params": sum(math.prod(shp) for shp, _ in
+                               param_entries(cfg).values()),
+               "steps": len(losses), "loss_first": losses[0],
+               "loss_last": losses[-1], "first_step_s": step_s[0],
+               "steady_tokens_per_s": tok * (len(step_s) - 1)
+               / sum(step_s[1:]),
+               "steady_step_ms": 1e3 * sum(step_s[1:]) / (len(step_s) - 1),
+               "sample_s": pipe.stats.sample_seconds,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "profile": prof}
+        if n_layers is not None:
+            row["reduced"] = f"{n_layers} of {full} layers"
+        del state, res, pipe, fe
+        row["wall_s"] = time.perf_counter() - t0
+        out[arch] = row
+        print(f"[train-families] {arch} " + json.dumps(row), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# [model-sharding]: moe_ffn_dist at phi3.5-moe's MoE widths (float32), B 4
+# x S 256, against moe_ffn with the same capacity: on a world-1 mesh in
+# this process, then on two gloo ranks on the one card (model 2, each rank
+# holding the whole tensors and running its 8 experts); compressed_psum on
+# the same two ranks.  Outputs and gradients within MS_TOL of the largest
+# value: CUDA's index_add_ and the sum over two ranks add in another order
+MS_DIMS = {"d_model": 4096, "n_experts": 16, "top_k": 2, "d_ff": 6400}
+MS_SHAPE = (4, 256)
+MS_TOL = 1e-5
+
+
+def _ms_inputs(seed: int = 0):
+    """Weights of std 1/sqrt(fan_in), x and an output cotangent from a
+    seeded generator on the card (the same on every rank)."""
+    import torch
+    from repro_torch.models.moe import moe_param_shapes, MoEDims
+    dims = MoEDims(**MS_DIMS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = {k: torch.randn(s, generator=gen, device="cuda")
+              / math.sqrt(s[-2]) for k, s in moe_param_shapes(dims).items()}
+    shape = MS_SHAPE + (dims.d_model,)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return dims, params, x, torch.randn(shape, generator=gen, device="cuda")
+
+
+def _ms_grads(fn, params, x, ct):
+    """(out, aux, gradients of sum(out · ct) + 0.01 · aux with respect to
+    the four weights and x)."""
+    import torch
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    xx = x.detach().requires_grad_(True)
+    out, aux = fn(p, xx)
+    g = torch.autograd.grad((out * ct).sum() + 0.01 * aux,
+                            list(p.values()) + [xx])
+    return out.detach(), aux.detach(), dict(zip(list(p) + ["x"], g))
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _ms_rank(rank: int, port: int, results) -> None:
+    """One of ``[model-sharding]``'s two ranks: a (data 1, model 2) mesh
+    over gloo on the one card; ``moe_ffn_dist`` against ``moe_ffn`` (the
+    world-1 result, computed here on the same inputs): the output, the aux
+    and this rank's gradients of x and the four weights (each rank holds
+    the whole gradient, as under the reference's ``shard_map``); then
+    ``compressed_psum``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import axis_group, make_mesh, set_mesh
+        from repro_torch.models.moe import moe_ffn, moe_ffn_dist
+        from repro_torch.train.grad_compress import compressed_psum
+        mesh = make_mesh((1, 2), ("data", "model"))
+        dims, params, x, ct = _ms_inputs()
+        d_out, d_aux, d_g = _ms_grads(lambda p, v: moe_ffn(p, v, dims),
+                                      params, x, ct)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with set_mesh(mesh):
+            out, aux, g = _ms_grads(lambda p, v: moe_ffn_dist(p, v, dims),
+                                    params, x, ct)
+        torch.cuda.synchronize()
+        res = {"dist_fwd_bwd_s": time.perf_counter() - t0,
+               "out": _rel(out, d_out), "aux": _rel(aux, d_aux)}
+        res.update({f"grad_{k}": _rel(g[k], d_g[k]) for k in d_g})
+        del params, x, ct, d_g, g
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(10 + rank)
+        c = torch.randn((1024, 1024), generator=gen, device="cuda") \
+            * 10.0 ** rank
+        got = compressed_psum(c, axis_group(mesh, "model"))
+        exact = c.clone()
+        dist.all_reduce(exact)
+        both = torch.empty((2 * got.numel(),), device="cuda")
+        dist.all_gather_into_tensor(both, got.reshape(-1))
+        res["psum_err"] = float((got - exact).abs().max())
+        res["psum_bar"] = float(0.05 * exact.abs().max() + 1e-5)
+        res["psum_same_on_both"] = bool(torch.equal(both[:got.numel()],
+                                                    both[got.numel():]))
+        results.put((rank, res))
+    except BaseException as e:
+        results.put((rank, {"error": repr(e)}))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_model_sharding(timeout: float = 150.0) -> dict:
+    """``moe_ffn_dist`` on a world-1 mesh in this process (a one-rank gloo
+    group over a ``HashStore``) and on two gloo ranks on the card, each
+    against ``moe_ffn`` with the same capacity within ``MS_TOL``;
+    ``compressed_psum`` on the two ranks within the reference's bar
+    (``err ≤ 0.05·max|psum| + 1e-5``, ``tests/test_infra.py``)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models.moe import moe_ffn, moe_ffn_dist
+    t0 = time.perf_counter()
+    out = {"dims": MS_DIMS, "shape": list(MS_SHAPE), "dtype": "float32"}
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        dims, params, x, ct = _ms_inputs()
+        d_out, d_aux, d_g = _ms_grads(lambda p, v: moe_ffn(p, v, dims),
+                                      params, x, ct)
+        with set_mesh(mesh):
+            w_out, w_aux, w_g = _ms_grads(
+                lambda p, v: moe_ffn_dist(p, v, dims), params, x, ct)
+        w1 = {"out": _rel(w_out, d_out), "aux": _rel(w_aux, d_aux)}
+        w1.update({f"grad_{k}": _rel(w_g[k], d_g[k]) for k in d_g})
+        with set_mesh(mesh):
+            w1["dist_ms"] = _call_ms(lambda: moe_ffn_dist(params, x, dims),
+                                     reps=10, warm=2)
+        w1["dense_ms"] = _call_ms(lambda: moe_ffn(params, x, dims), reps=10,
+                                  warm=2)
+        out["world1"] = w1
+        del params, x, ct, d_g, w_g, d_out, w_out
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if any(v > MS_TOL for k, v in w1.items() if not k.endswith("_ms")):
+        raise AssertionError(f"[model-sharding] world 1: {w1}")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_ms_rank, args=(r, port, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = results.get(timeout=timeout)
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if any(p.exitcode != 0 or "error" in got.get(r, {"error": None})
+           for r, p in enumerate(procs)):
+        raise AssertionError(f"[model-sharding] ranks failed: exit codes "
+                             f"{[p.exitcode for p in procs]}, {got}")
+    for r, res in got.items():
+        bad = [k for k, v in res.items()
+               if (k in ("out", "aux") or k.startswith("grad_"))
+               and v > MS_TOL]
+        if bad or not res["psum_same_on_both"] or \
+                res["psum_err"] > res["psum_bar"]:
+            raise AssertionError(f"[model-sharding] rank {r}: {bad} {res}")
+    out["world2_gloo"] = got
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -3612,6 +3999,16 @@ def main(argv=None) -> int:
     mark("train")
     path_launches("[train] unionlm-100m UQ3", train_out)
     path_launches("[train] UQ1 pipeline (scale 1)", train_out["uq1_pipeline"])
+
+    # 14. the other families' training at their published widths on UQ3
+    # samples, then model sharding
+    fam_train = phase_train_families()
+    mark("train-families")
+    for arch, row in fam_train.items():
+        path_launches(f"[train-families] {arch} UQ3", row)
+    ms_out = phase_model_sharding()
+    print("[model-sharding] " + json.dumps(ms_out), flush=True)
+    mark("model-sharding")
 
     cuts = [f"{what} {got:g} (full: {full:g})" for what, got, full in (
         ("UQ1 scale", args.scale, UQ1_SCALE),

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import rank_device
 from ..backends.torch_backend import TorchBackend, TorchTreeJoin, _as_i32, fp32
 from ..index import Catalog
 from ..joins import JoinSpec
@@ -95,11 +95,8 @@ def make_sampler_mesh(world: Optional[int] = None, device=None) -> SamplerMesh:
                 f"make_sampler_mesh(world={world}) but the process group has "
                 f"{dist.get_world_size()} ranks")
         rank, group = dist.get_rank(), dist.group.WORLD
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
-                           % torch.cuda.device_count())
-    return SamplerMesh(world=world, rank=rank, device=dev, group=group)
+    return SamplerMesh(world=world, rank=rank, device=rank_device(device),
+                       group=group)
 
 
 def rank_stream_seed(seed: int, rank: int, stream: int) -> int:

@@ -7,6 +7,7 @@ error unless the caller asked for ``"cpu"``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -22,6 +23,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "is False; pass device='cpu' to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
+    return dev
+
+
+def rank_device(device=None) -> torch.device:
+    """The device of this rank: ``device=None`` is the card indexed by
+    ``LOCAL_RANK`` (torchrun's) modulo the visible cards; it raises without
+    a card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                           % torch.cuda.device_count())
     return dev
 
 

@@ -14,8 +14,11 @@ periodic checkpoints::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 3 --scale 0.01
 
-``--arch`` takes the ``dense`` and ``gemma2`` ids of
-:mod:`repro_torch.configs` (``--smoke``: the reduced config).  It prints the
+``--arch`` takes every id of :mod:`repro_torch.configs` (``--smoke``: the
+reduced config).  The batches carry tokens and targets only, as the
+reference's do, so the encdec and vlm configs (whisper, paligemma) fail at
+the first step with a ``KeyError`` naming the missing frontend, where the
+reference's CLI fails.  It prints the
 reference's step lines (step, loss, lr, tuples drawn and seconds spent
 sampling) and its closing line; checkpoints go to ``--checkpoint-dir``
 (default: ``repro_torch_ckpt`` under the temporary directory).

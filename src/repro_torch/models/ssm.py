@@ -5,7 +5,9 @@ The port's copy of the reference's ``repro/models/ssm.py``, in plain
 PyTorch (the reference has no kernel here either).  The SSD form (Dao &
 Gu, arXiv:2405.21060) splits the sequence into chunks of length ``Q``:
 inside a chunk the recurrence is a masked decay-weighted product, and a
-loop over the chunks carries the (H, N, P) state.  Decode is the plain
+loop over the chunks carries the (H, N, P) state; every chunk's own terms
+are computed at once, batched over the chunks, and only the state's
+carry runs chunk by chunk.  Decode is the plain
 recurrence ``h = a·h + B⊗(dt·x)``, ``y = C·h``: its state is O(B·H·N·P)
 whatever the context length.
 
@@ -13,6 +15,19 @@ The carried state ``h`` is float32 in both: :func:`mamba2_decode` returns
 it in float32 whatever the dtype of the state it was given (a bf16 zero
 cache times float32 decays is float32, as in the reference), and the
 causal conv sums its taps in float32 in the reference's order.
+
+Training differentiates the scan with plain autograd.  The reference wraps
+each chunk step in ``jax.checkpoint(nothing_saveable)``, so its backward
+holds one chunk's intermediates at a time; the port recomputes at the
+block level only (``forward_hidden``'s remat of each layer), so while one
+block's backward runs, every chunk's intermediates of that block are alive
+at once: per chunk the (B, Q, Q, H) decays, (B, Q, H, P) outputs and the
+(B, H, N, P) state in float32.  At mamba2-780m's widths (H 48, N 128, P 64,
+Q 128) and B 8 × S 1024 that is about 0.6 GB for the block being
+recomputed, against about 80 MB for the reference's one chunk; it does not
+grow with depth.  The masked exponent ``exp(where(i >= j, diff, -1e30))``
+has a finite gradient: the masked entries' exponent is a constant, so they
+pass no gradient to ``diff`` (the reference masks the same way).
 """
 
 from __future__ import annotations
@@ -106,26 +121,29 @@ def ssd_chunked(u: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     idx = torch.arange(Q, device=u.device)
-    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]    # i >= j
-    ys = []
+    tri = (idx[:, None] >= idx[None, :])[None, None, :, :, None]  # i >= j
+    # every chunk's own terms at once (the reference's chunk step, batched
+    # over the chunks c): intra-chunk masked decay-weighted "attention"
+    g = torch.einsum("bcin,bcjn->bcij", C_c, B_c)                 # (B,nc,Q,Q)
+    # mask the EXPONENT, not the result: exp of the (positive) upper
+    # triangle overflows
+    diff = la_c[:, :, :, None, :] - la_c[:, :, None, :, :]         # (B,nc,Qi,Qj,H)
+    dec = torch.exp(torch.where(tri, diff, -1e30))
+    y_in = torch.einsum("bcij,bcijh,bcjhp->bcihp", g, dec, u_c)
+    # each chunk's contribution to the state it passes on
+    la_end = la_c[:, :, -1, :]                                     # (B,nc,H)
+    w = torch.exp(la_end[:, :, None, :] - la_c)                    # (B,nc,Q,H)
+    s_new = torch.einsum("bcjn,bcjh,bcjhp->bchnp", B_c, w, u_c)
+    # the carried state: the only sequential part
+    a_end = torch.exp(la_end)[..., None, None]                     # (B,nc,H,1,1)
+    h_in = []
     for c in range(nc):
-        uc, lac, bc, cc = u_c[:, c], la_c[:, c], B_c[:, c], C_c[:, c]
-        # intra-chunk: masked decay-weighted "attention"
-        g = torch.einsum("bin,bjn->bij", cc, bc)                  # (B,Q,Q)
-        # mask the EXPONENT, not the result: exp of the (positive) upper
-        # triangle overflows
-        diff = lac[:, :, None, :] - lac[:, None, :, :]            # (B,Qi,Qj,H)
-        dec = torch.exp(torch.where(tri, diff, -1e30))
-        y_in = torch.einsum("bij,bijh,bjhp->bihp", g, dec, uc)
-        # inter-chunk: contribution of the carried state
-        y_x = torch.einsum("bin,bih,bhnp->bihp", cc, torch.exp(lac), h)
-        # state update
-        la_end = lac[:, -1:, :]                                   # (B,1,H)
-        w = torch.exp(la_end - lac)                               # (B,Q,H)
-        s_new = torch.einsum("bjn,bjh,bjhp->bhnp", bc, w, uc)
-        h = torch.exp(la_end[:, 0, :])[:, :, None, None] * h + s_new
-        ys.append(y_in + y_x)
-    return torch.stack(ys, dim=1).reshape(Bsz, S, H, P), h
+        h_in.append(h)
+        h = a_end[:, c] * h + s_new[:, c]
+    # inter-chunk: contribution of the state entering each chunk
+    y_x = torch.einsum("bcin,bcih,bchnp->bcihp", C_c, torch.exp(la_c),
+                       torch.stack(h_in, dim=1))
+    return (y_in + y_x).reshape(Bsz, S, H, P), h
 
 
 def _gates(params: Dict[str, torch.Tensor], dt: torch.Tensor):

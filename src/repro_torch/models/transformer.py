@@ -22,9 +22,13 @@ forward pass (:func:`forward_hidden`) runs every family:
 * ``vlm``     — paligemma: precomputed patch embeddings prepended to the
                 text (bidirectional over the ``prefix_len`` prefix)
 
-The training loss (:func:`forward_train`) runs ``dense`` and ``gemma2``;
-the other families' training is queued as ROADMAP §A 6b and raises
-``NotImplementedError`` naming it.  Parameters are a plain dict under the
+The training loss (:func:`forward_train`) runs every family, with the
+reference's two family rules: ``vlm``'s patch prefix carries no target,
+and ``moe``'s loss adds ``0.01 ·`` the layers' summed aux loss (its
+``metrics["loss"]`` stays the NLL).  ``encdec`` and ``vlm`` need
+``batch["frontend"]`` (the reference's train CLI feeds tokens/targets
+only, so those two fail there, here as in the reference, with a
+``KeyError`` naming it).  Parameters are a plain dict under the
 reference's names (``blocks.wq`` …) with the stacked ``(L, …)`` layout;
 where the reference scans over layers the port loops over the layers of
 the stacked tensors (``unbind``, whose backward stacks the per-layer
@@ -34,7 +38,11 @@ on, each block (a zamba2 group, as the reference's scan body) runs under
 memory, never values), and :func:`_chunked_xent` recomputes each loss
 chunk's logits in the backward, so the full ``(B, S, V)`` logits never
 exist.  The reference's sharding constraints are no-ops without a mesh and
-are left out until model sharding is ported (ROADMAP §A 7).
+are GSPMD constraints with no eager counterpart and stay out (see
+:mod:`repro_torch.launch.sharding`); the moe block calls
+:func:`~repro_torch.models.moe.moe_ffn_auto`, which runs the reference's
+expert-parallel ``moe_ffn_dist`` under an ambient mesh
+(:func:`repro_torch.launch.mesh.set_mesh`) and ``moe_ffn`` otherwise.
 """
 
 from __future__ import annotations
@@ -49,21 +57,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from .layers import (fit_chunk, flash_attention_cv, rms_norm, rope, softcap,
                      swiglu)
-from .moe import MoEDims, moe_ffn, moe_param_shapes
+from .moe import MoEDims, moe_ffn_auto, moe_param_shapes
 from .ssm import SSMDims, mamba2_block, ssm_param_shapes
 
 PAD_ID = 0
-
-
-def require_trainable(cfg: "ModelConfig", what: str) -> None:
-    """Raise ``NotImplementedError`` for a family whose training the port
-    does not run yet: moe, mamba2, zamba2, encdec and vlm are queued as
-    ROADMAP §A 6b (they serve: :func:`forward_hidden` and the decode path
-    run every family)."""
-    if cfg.family not in ("dense", "gemma2"):
-        raise NotImplementedError(
-            f"{what}: training of family {cfg.family!r} is not ported yet "
-            "(ROADMAP §A 6b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,7 +385,7 @@ def _moe_block(p, x, cfg: ModelConfig, positions
     the same normed input); returns (x', the layer's aux loss)."""
     x = x + _attention_sublayer(p, x, cfg, positions)
     h = rms_norm(x, p["ln2"])
-    out, aux = moe_ffn(_sub(p, "moe_"), h, cfg.moe_dims)
+    out, aux = moe_ffn_auto(_sub(p, "moe_"), h, cfg.moe_dims)
     if cfg.dense_residual:
         out = out + swiglu(h, p["res_w_gate"].to(x.dtype),
                            p["res_w_up"].to(x.dtype),
@@ -456,6 +453,11 @@ def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
         return torch.arange(n, device=dev)[None].expand(B, n)
 
     fam = cfg.family
+    if fam in ("encdec", "vlm") and "frontend" not in batch:
+        raise KeyError(
+            f"frontend: family {fam!r} ({cfg.name}) needs batch['frontend'], "
+            f"its {cfg.frontend} embeddings (B, {cfg.n_frontend_tokens}, "
+            f"{cfg.d_model})")
     aux = None
     if fam == "encdec":
         enc = batch["frontend"].to(cfg.compute_dtype)         # (B,Tf,d)
@@ -547,9 +549,21 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 def forward_train(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (loss, metrics). batch: tokens/targets (B, S)."""
-    require_trainable(cfg, "forward_train")
+    """Returns (loss, metrics). batch: tokens/targets (B, S) (+ frontend
+    embeddings for encdec and vlm).  vlm's ``n_frontend_tokens`` prefix
+    positions get ``PAD_ID`` targets, so ``metrics["tokens"]`` counts the
+    text targets only; moe's loss is the NLL plus ``0.01 · aux_loss``,
+    ``metrics["loss"]`` the NLL alone."""
     x, aux_total = forward_hidden(params, cfg, batch)
-    nll_sum, cnt = _chunked_xent(x, params["embed"], batch["targets"], cfg)
+    targets = batch["targets"]
+    if cfg.family == "vlm":
+        # frontend positions carry no next-token target
+        pad = torch.full((targets.shape[0], cfg.n_frontend_tokens), PAD_ID,
+                         dtype=targets.dtype, device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
+    nll_sum, cnt = _chunked_xent(x, params["embed"], targets, cfg)
     loss = nll_sum / torch.clamp(cnt, min=1.0)
-    return loss, {"loss": loss, "aux_loss": aux_total, "tokens": cnt}
+    metrics = {"loss": loss, "aux_loss": aux_total, "tokens": cnt}
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux_total
+    return loss, metrics

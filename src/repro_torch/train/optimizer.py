@@ -10,13 +10,16 @@ arXiv:1804.04235), the default for arctic-480b and mistral-large-123b.
 The arithmetic is the reference's, in float32: the gradient and ``m`` are
 cast to float32 first, ``b1**t`` and ``b2**t`` are float32 tensors of the
 float32 step count ``t = step + 1`` (as the reference's traced ``t``), and
-each new parameter is cast back to its own dtype.  The updates are out of
-place: :func:`apply_update` returns new dicts, as the reference does.
+each new parameter is cast back to its own dtype.  The reference's
+``apply_update`` returns new dicts; :func:`apply_update_` writes the same
+values into the parameters and slots it is given, piece by piece, so a
+train step holds one optimizer state, not two.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -75,45 +78,81 @@ def init_opt_state(opt: OptConfig, params: Tensors) -> Tensors:
     return out
 
 
-def apply_update(opt: OptConfig, params: Tensors, grads: Tensors,
-                 state: Tensors, step: torch.Tensor,
-                 lr: Optional[torch.Tensor] = None
-                 ) -> Tuple[Tensors, Tensors]:
-    """One optimizer step.  ``lr`` (a tensor) overrides ``opt.lr``:
-    Adam-family updates are invariant to gradient scaling, so schedules
-    scale the update, never the gradients."""
+def _update(opt: OptConfig, p: torch.Tensor, g: torch.Tensor,
+            slots: Tensors, decay: bool, eff_lr, bc1, bc2
+            ) -> Tuple[torch.Tensor, Tensors]:
+    """One parameter's new value and new slots (keyed ``m``/``v`` or
+    ``m``/``vr``/``vc``), each in its own dtype.  Elementwise but for
+    adafactor's row and column means over the last two dims."""
+    g = g.float()
+    m = opt.b1 * slots["m"].float() + (1 - opt.b1) * g
+    new = {"m": m.to(slots["m"].dtype)}
+    if "vr" in slots:
+        g2 = g * g + 1e-30
+        vr = opt.b2 * slots["vr"] + (1 - opt.b2) * g2.mean(dim=-1)
+        vc = opt.b2 * slots["vc"] + (1 - opt.b2) * g2.mean(dim=-2)
+        # factored reconstruction: vr ⊗ vc / mean(vr)
+        denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
+        vhat = (vr[..., :, None] * vc[..., None, :]) / denom[..., None]
+        upd = m / (torch.sqrt(vhat / bc2) + opt.eps)
+        new.update(vr=vr, vc=vc)
+    else:
+        v = opt.b2 * slots["v"] + (1 - opt.b2) * g * g
+        if opt.kind == "adamw":
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+        else:
+            upd = m / (torch.sqrt(v / bc2) + opt.eps)
+        new["v"] = v
+    if decay:
+        upd = upd + opt.weight_decay * p
+    return (p - eff_lr * upd).to(p.dtype), new
+
+
+# elements per piece of apply_update_: its float32 temporaries (the cast
+# gradient, m, v, the update, the new value) for one piece at a time
+UPDATE_PIECE = 1 << 25
+
+
+def _pieces(shape, factored: bool) -> list:
+    """Views that cut a tensor of ``shape`` into the update's pieces: flat
+    ranges of ``UPDATE_PIECE`` elements where the update is elementwise,
+    ranges of dim 0 where adafactor factors a >= 3-d tensor (its means
+    stay within a slice), the whole tensor otherwise."""
+    n = math.prod(shape)
+    if not factored:
+        return [lambda t, i=i: t.view(-1)[i:i + UPDATE_PIECE]
+                for i in range(0, n, UPDATE_PIECE)]
+    if len(shape) < 3:
+        return [lambda t: t]
+    per = max(1, UPDATE_PIECE // max(n // shape[0], 1))
+    return [lambda t, i=i: t[i:i + per] for i in range(0, shape[0], per)]
+
+
+def apply_update_(opt: OptConfig, params: Tensors, grads: Tensors,
+                  state: Tensors, step: torch.Tensor,
+                  lr: Optional[torch.Tensor] = None) -> None:
+    """One optimizer step, in place: each parameter and slot is
+    overwritten piece by piece (elementwise arithmetic, so the pieces give
+    the whole tensor's bits), holding the temporaries of one piece.
+    Parameters and slots must be contiguous.  ``lr`` (a tensor) overrides
+    ``opt.lr``: Adam-family updates are invariant to gradient scaling, so
+    schedules scale the update, never the gradients."""
     eff_lr = opt.lr if lr is None else lr
-    new_params, new_state = {}, {}
     t = torch.as_tensor(step, device=next(iter(params.values())).device
                         ).float() + 1.0
     bc1, bc2 = 1 - opt.b1 ** t, 1 - opt.b2 ** t
     for k, p in params.items():
-        g = grads[k].float()
-        m = state[f"m.{k}"].float()
-        m = opt.b1 * m + (1 - opt.b1) * g
-        if opt.kind == "adamw":
-            v = opt.b2 * state[f"v.{k}"] + (1 - opt.b2) * g * g
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
-            new_state[f"v.{k}"] = v
-        elif f"vr.{k}" in state:
-            g2 = g * g + 1e-30
-            vr = opt.b2 * state[f"vr.{k}"] + (1 - opt.b2) * g2.mean(dim=-1)
-            vc = opt.b2 * state[f"vc.{k}"] + (1 - opt.b2) * g2.mean(dim=-2)
-            # factored reconstruction: vr ⊗ vc / mean(vr)
-            denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
-            vhat = (vr[..., :, None] * vc[..., None, :]) / denom[..., None]
-            upd = m / (torch.sqrt(vhat / bc2) + opt.eps)
-            new_state[f"vr.{k}"] = vr
-            new_state[f"vc.{k}"] = vc
-        else:
-            v = opt.b2 * state[f"v.{k}"] + (1 - opt.b2) * g * g
-            upd = m / (torch.sqrt(v / bc2) + opt.eps)
-            new_state[f"v.{k}"] = v
-        if p.dim() >= 2:
-            upd = upd + opt.weight_decay * p
-        new_params[k] = (p - eff_lr * upd).to(p.dtype)
-        new_state[f"m.{k}"] = m.to(state[f"m.{k}"].dtype)
-    return new_params, new_state
+        factored = f"vr.{k}" in state
+        slots = {r: state[f"{r}.{k}"]
+                 for r in (("m", "vr", "vc") if factored else ("m", "v"))}
+        g = grads[k].contiguous()
+        for cut in _pieces(tuple(p.shape), factored):
+            new_p, new = _update(opt, cut(p), cut(g),
+                                 {r: cut(v) for r, v in slots.items()},
+                                 p.dim() >= 2, eff_lr, bc1, bc2)
+            cut(p).copy_(new_p)
+            for r, v in new.items():
+                cut(slots[r]).copy_(v)
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:

@@ -15,9 +15,15 @@ The port's copy of the reference's ``repro/train/train_step.py``:
 
 The state is ``{"step": int32 0-dim tensor, "params": {...}, "opt":
 {...}}`` (+ ``"ef"`` under ``compress_grads``), every tensor on one device;
-a step returns a new state and its metrics as tensors (no host sync).
-``train_state_specs``/``train_state_logical_axes`` wait for model sharding
-(ROADMAP §A 7–8).
+a step returns the next state and its metrics as tensors (no host sync).
+The step consumes the state it is given, as the reference's jitted step
+does with donated buffers: the masters and the optimizer slots are updated
+in place (:func:`repro_torch.train.optimizer.apply_update_`), so a step
+holds one optimizer state, not two; keep a copy to reuse an old state.
+:func:`train_state_specs` gives the state's shapes and dtypes as tensors
+on the meta device (nothing is allocated, arctic-480b included) and
+:func:`train_state_logical_axes` the matching logical axes, for
+:func:`repro_torch.launch.sharding.tree_shardings`.
 """
 
 from __future__ import annotations
@@ -28,10 +34,11 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from ..models.transformer import ModelConfig, forward_train, init_params
+from ..models.transformer import (ModelConfig, forward_train, init_params,
+                                  logical_axes, param_entries)
 from .grad_compress import compress_decompress, init_error_feedback
-from .optimizer import (OptConfig, apply_update, clip_by_global_norm,
-                        init_opt_state)
+from .optimizer import (OptConfig, apply_update_, clip_by_global_norm,
+                        init_opt_state, m_dtype, opt_state_entries)
 
 State = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -67,7 +74,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig
         p16 = {k: v.detach().to(cfg.compute_dtype).requires_grad_(True)
                for k, v in params.items()}
         loss, metrics = forward_train(p16, cfg, batch)
-        grads = torch.autograd.grad(loss, list(p16.values()))
+        # zeros for a parameter the loss does not reach (arctic's
+        # res_ln2), as the reference's grad gives
+        grads = torch.autograd.grad(loss, list(p16.values()),
+                                    materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(p16, grads)))
 
@@ -97,11 +107,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig
 
         grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm)
         lr = lr_at(tc, state["step"]) * tc.opt.lr
-        new_params, new_opt = apply_update(tc.opt, params, grads, state["opt"],
-                                           state["step"], lr=lr)
+        apply_update_(tc.opt, params, grads, state["opt"], state["step"],
+                      lr=lr)
         new_state = dict(state)
-        new_state.update(step=state["step"] + 1, params=new_params,
-                         opt=new_opt)
+        new_state["step"] = state["step"] + 1
         metrics = dict(metrics)
         metrics.update(grad_norm=gnorm, lr=lr)
         return new_state, metrics
@@ -120,4 +129,44 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0,
              "params": params, "opt": init_opt_state(tc.opt, params)}
     if tc.compress_grads:
         state["ef"] = init_error_feedback(params)
+    return state
+
+
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> State:
+    """The state's shapes and dtypes as meta tensors: float32 masters, the
+    optimizer slots of ``opt_state_entries`` (``m`` in ``m_dtype``;
+    adafactor's factored ``vr``/``vc``), ``ef`` under ``compress_grads``."""
+    shapes = {k: shp for k, (shp, _) in param_entries(cfg).items()}
+    state = {"step": _meta((), torch.int32),
+             "params": {k: _meta(shp) for k, shp in shapes.items()},
+             "opt": {k: _meta(shp, m_dtype(tc.opt) if k.startswith("m.")
+                              else torch.float32)
+                     for k, (shp, _) in opt_state_entries(
+                         tc.opt, shapes).items()}}
+    if tc.compress_grads:
+        state["ef"] = {k: _meta(shp) for k, shp in shapes.items()}
+    return state
+
+
+def train_state_logical_axes(cfg: ModelConfig, tc: TrainConfig) -> State:
+    """Logical axes matching :func:`train_state_specs`."""
+    lax_ = logical_axes(cfg)
+    shapes = {k: shp for k, (shp, _) in param_entries(cfg).items()}
+    opt_ax = {}
+    for k, (shp, role) in opt_state_entries(tc.opt, shapes).items():
+        base = lax_[role]
+        if len(shp) == len(base):
+            opt_ax[k] = base
+        elif k.startswith("vr."):
+            # factored adafactor slots: drop the reduced dim's logical name
+            opt_ax[k] = base[:-1]
+        else:  # vc: all but second-to-last
+            opt_ax[k] = base[:-2] + base[-1:]
+    state = {"step": (), "params": lax_, "opt": opt_ax}
+    if tc.compress_grads:
+        state["ef"] = lax_
     return state

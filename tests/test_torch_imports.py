@@ -35,7 +35,8 @@ new = {"repro_torch.core.distributed", "repro_torch.core.torch_sampler",
        "repro_torch.train.grad_compress", "repro_torch.train.train_step",
        "repro_torch.data.encode", "repro_torch.data.pipeline",
        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
-       "repro_torch.launch.ft", "repro_torch.launch.train"}
+       "repro_torch.launch.ft", "repro_torch.launch.train",
+       "repro_torch.launch.mesh", "repro_torch.launch.sharding"}
 print(len(names), "modules;", "leaked:", bad, "missing:", new - set(names))
 sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)
 """

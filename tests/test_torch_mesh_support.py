@@ -26,10 +26,19 @@ The workers check on every rank:
   ``SampleSet``, counters and chunks on every rank, one host sync per chunk
   plus the fetch, rows in their home piece, banks drained;
 * :func:`check_online` — ``OnlineUnionSampler(mesh=)`` smoke: every size
-  accumulator's count is a multiple of ``world · rw_batch``.
+  accumulator's count is a multiple of ``world · rw_batch``;
+* :func:`model_sharding` (world 8; ``tests/test_torch_model_sharding.py``)
+  — ``tree_shardings``' placements on a (2, 4) ``DeviceMesh``, and
+  ``moe_ffn_dist`` on (2, 4) and (2, 2, 2) meshes, and ``forward_train``
+  of arctic's smoke config under the (2, 4) mesh (its MoE layers through
+  ``moe_ffn_dist``): the same outputs and the same gradients on every
+  rank, which rank 0 writes;
+* :func:`compressed_psum_ranks` (world 4) — ``compressed_psum`` over a
+  one-axis mesh's group: the same sum on every rank, which rank 0 writes.
 """
 
 import datetime
+import os
 import socket
 import time
 
@@ -47,22 +56,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, worker):
+def _rank_main(rank, world, port, worker, args):
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
         world_size=world,
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
-        globals()[worker](world)
+        globals()[worker](world, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(worker: str, world: int, timeout: float = 120.0) -> None:
-    """Run ``worker(world)`` of this module on ``world`` gloo ranks."""
+def spawn(worker: str, world: int, timeout: float = 120.0, *args) -> None:
+    """Run ``worker(world, *args)`` of this module on ``world`` gloo
+    ranks."""
     ctx = mp.start_processes(_rank_main,
-                             args=(world, free_port(), worker),
+                             args=(world, free_port(), worker, args),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
@@ -275,3 +285,121 @@ def world4(world: int) -> None:
     check_uniform(world)
     check_device_loop(world)
     check_online(world)
+
+
+# moe_ffn_dist's case (tests/test_infra.py:331-346): 8 experts over 4 model
+# ranks, 4 sequences over 2 data ranks, capacity factor 16 (dropless)
+MOE_DIST_DIMS = dict(d_model=32, n_experts=8, top_k=2, d_ff=64,
+                     capacity_factor=16.0)
+MOE_DIST_MESHES = {"d2m4": ((2, 4), ("data", "model")),
+                   "p2d2m2": ((2, 2, 2), ("pod", "data", "model"))}
+# forward_train under a mesh: a model whose MoE layers take moe_ffn_dist
+# (8 experts over 4 model ranks) beside replicated attention, norms and
+# arctic's dense residual FFN
+FT_ARCH, FT_MESH, FT_SHAPE = "arctic-480b", "d2m4", (4, 32)
+
+
+def _tensor_same_on_every_rank(world: int, t: torch.Tensor, what: str
+                               ) -> None:
+    g = torch.empty(world * t.numel(), dtype=t.dtype)
+    dist.all_gather_into_tensor(g, t.reshape(-1).contiguous())
+    g = g.view(world, -1)
+    assert all(torch.equal(g[0], g[r]) for r in range(world)), what
+
+
+def model_sharding(world: int, io_dir: str) -> None:
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import (ambient_mesh, axis_index,
+                                         make_debug_mesh, make_mesh,
+                                         set_mesh)
+    from repro_torch.launch.sharding import batch_sharding, tree_shardings
+    from repro_torch.models.moe import MoEDims, moe_ffn_dist
+    rank = dist.get_rank()
+    mesh = make_debug_mesh(data=2, model=4)
+    assert axis_index(mesh, ("data", "model")) == rank
+    meta = {"w": torch.empty((8, 32, 64), device="meta"),
+            "b": torch.empty((7, 64), device="meta")}
+    sh = tree_shardings(mesh, meta, {"w": ("experts", "embed", "mlp"),
+                                     "b": ("batch", "mlp")})
+    # experts on "model", d on "data" (FSDP); the batch of 7 stays whole
+    assert sh["w"].placements == (Shard(1), Shard(0)), sh["w"]
+    assert sh["b"].placements == (Replicate(), Shard(1)), sh["b"]
+    assert batch_sharding(mesh, 8).placements == (Shard(0), Replicate())
+
+    z = np.load(os.path.join(io_dir, "inputs.npz"))
+    dims = MoEDims(**MOE_DIST_DIMS)
+    ct = torch.as_tensor(z["ct"])
+    out = {}
+    for name, (shape, axes) in MOE_DIST_MESHES.items():
+        mesh = make_mesh(shape, axes)
+        params = {k: torch.tensor(z[k], requires_grad=True)
+                  for k in ("router", "w_gate", "w_up", "w_down")}
+        x = torch.tensor(z["x"], requires_grad=True)
+        with set_mesh(mesh):
+            o, aux = moe_ffn_dist(params, x, dims)
+        assert ambient_mesh() is None
+        ((o * ct).sum() + 0.01 * aux).backward()
+        res = {"out": o.detach(), "aux": aux.detach()[None]}
+        res.update({f"grad.{k}": t.grad for k, t in {**params, "x": x}.items()})
+        for k, v in res.items():
+            _tensor_same_on_every_rank(world, v, f"{name}.{k}")
+            out[f"{name}.{k}"] = v.numpy()
+    out.update(_forward_train_under_mesh(world, z))
+    if rank == 0:
+        np.savez(os.path.join(io_dir, "port.npz"), **out)
+
+
+def _forward_train_under_mesh(world: int, z) -> dict:
+    """``forward_train`` of ``FT_ARCH``'s float32 smoke config on the
+    ``FT_MESH`` mesh: loss, metrics and every parameter's gradient (the
+    same on every rank), keyed ``ft.*``; every MoE layer must have taken
+    ``moe_ffn_dist``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import moe, transformer
+    cfg = dataclasses.replace(configs.get_smoke_config(FT_ARCH),
+                              dtype="float32")
+    names = [k[len("ft.param."):] for k in z.files
+             if k.startswith("ft.param.")]
+    params = params_from_numpy(cfg, {k: z["ft.param." + k] for k in names},
+                               device="cpu", dtype=torch.float32)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    batch = {k: torch.as_tensor(z["ft." + k]) for k in ("tokens", "targets")}
+    calls, dist_fn = [], moe.moe_ffn_dist
+
+    def counted(*a):
+        calls.append(1)
+        return dist_fn(*a)
+    moe.moe_ffn_dist = counted
+    try:
+        with set_mesh(make_mesh(*MOE_DIST_MESHES[FT_MESH])):
+            loss, met = transformer.forward_train(params, cfg, batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        materialize_grads=True)
+    finally:
+        moe.moe_ffn_dist = dist_fn
+    assert len(calls) >= cfg.n_layers, calls
+    out = {"ft.total": loss.detach()[None]}
+    out.update({f"ft.{k}": v.detach().reshape(1) for k, v in met.items()})
+    out.update({f"ft.grad.{k}": g for k, g in zip(params, grads)})
+    for k, v in out.items():
+        _tensor_same_on_every_rank(world, v, k)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def compressed_psum_ranks(world: int, io_dir: str) -> None:
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.train.grad_compress import compressed_psum
+    rank = dist.get_rank()
+    mesh = make_mesh((world,), ("pod",))
+    z = np.load(os.path.join(io_dir, "inputs.npz"))
+    got = compressed_psum(torch.as_tensor(z[f"c{rank}"]),
+                          axis_group(mesh, "pod"))
+    g = torch.empty(world * got.numel())
+    dist.all_gather_into_tensor(g, got.reshape(-1))
+    g = g.view(world, -1)
+    assert all(torch.equal(g[0], g[r]) for r in range(world))
+    if rank == 0:
+        np.save(os.path.join(io_dir, "psum.npy"), got.numpy())

@@ -142,15 +142,21 @@ def test_init_params_law(arch):
 
 
 def test_other_families_raise_not_implemented():
-    """The five families serve (forward, prefill, decode: see
-    ``test_torch_lm_families.py``) but do not train yet: ``forward_train``
-    raises naming their ROADMAP item."""
+    """The five other families train as they serve: ``forward_train``
+    runs for each (a finite loss, every parameter reached; their values
+    against the reference are in ``test_torch_train_families.py``), and
+    every family's caches have the reference's shapes and dtypes."""
     for arch in ("phi3.5-moe-42b-a6.6b", "mamba2-780m", "zamba2-7b",
                  "whisper-medium", "paligemma-3b"):
         cfg = pconfigs.get_smoke_config(arch)
-        toks = torch.ones((1, 4), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP §A 6b"):
-            ptrans.forward_train({}, cfg, {"tokens": toks, "targets": toks})
+        params = ptrans.init_params(cfg, seed=0, device="cpu")
+        toks = torch.ones((1, 16), dtype=torch.int32)
+        batch = {"tokens": toks, "targets": toks}
+        if cfg.frontend != "none":
+            batch["frontend"] = torch.zeros((1, cfg.n_frontend_tokens,
+                                             cfg.d_model))
+        loss, met = ptrans.forward_train(params, cfg, batch)
+        assert torch.isfinite(loss) and float(met["tokens"]) == 16
         # every family's caches have the reference's shapes and dtypes
         cache = pserve.init_cache(cfg, 2, 16, device="cpu")
         want = rserve.init_cache(rconfigs.get_smoke_config(arch), 2, 16)
