@@ -195,7 +195,20 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    (model 2), each against ``moe_ffn`` with the same capacity (outputs,
    aux and every rank's gradients of the four weights and x, within
    ``MS_TOL`` of the largest value), and ``compressed_psum``
-   on the two ranks within the reference's bar.
+   on the two ranks within the reference's bar;
+16. the dry-run and the audits — ``[dryrun]``:
+   ``repro_torch.launch.dryrun.lower_cell`` at full width for gemma2-9b
+   ``decode_32k``, mamba2-780m ``decode_32k`` and unionlm-100m
+   ``train_4k`` on a fake (16, 16) process group (each step traced on meta
+   tensors at one and two blocks and its census scaled to the full depth):
+   the roofline terms of each, B4 counted by name in gemma2-9b's census
+   exactly ``attention_calls_per_step`` times, and no change to
+   ``torch.cuda.memory_allocated`` or to the launch counts across the
+   traces; ``[audits]``: the capture audit on the card for UQ1 (scale
+   0.02) under both plans (one static buffer set and one CUDA-graph
+   capture per capacity class; B1 and B2 launch in the captured rounds)
+   and the lint gate ``python -m repro_torch.analysis --layers ast``, with
+   no finding.
 
 Every served path runs the engine's default round loop,
 ``fused_rounds="device"``: one round captured as a CUDA graph per capacity
@@ -3567,6 +3580,94 @@ def phase_metrics(wl, est, round_batch: int, backend, requests: int = 8,
             "request_p99_s": got.get("repro_serve_request_seconds_p99")}
 
 
+DRYRUN_CELLS = (("gemma2-9b", "decode_32k"), ("mamba2-780m", "decode_32k"),
+                ("unionlm-100m", "train_4k"))
+
+
+def phase_dryrun() -> dict:
+    """``lower_cell`` at full width for three cells on a fake (16, 16)
+    group: each step traced on meta tensors, its census extended from one
+    and two blocks to the full depth.  B4 must appear in gemma2-9b's census
+    exactly ``attention_calls_per_step`` times, and the traces must
+    allocate nothing on the card and launch no kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.serve import attention_calls_per_step
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    launches0 = _launches()
+    out = {}
+    with dryrun.fake_mesh((16, 16), ("data", "model")) as mesh:
+        for arch, shape in DRYRUN_CELLS:
+            res = dryrun.lower_cell(arch, shape, mesh)
+            r = res["roofline"]
+            out[f"{arch} {shape}"] = {
+                "trace_s": res["trace_s"], "depth": res["depth"],
+                "partitioning": res["partitioning"],
+                "argument_gib": res["memory"]["argument_bytes"] / 2**30,
+                "kernel_calls": res["kernel_calls"],
+                "collectives": res["collectives"],
+                **{k: r[k] for k in (
+                    "compute_s", "memory_s", "memory_census_floor_s",
+                    "memory_upper_s", "collective_s", "dominant",
+                    "model_flops_per_chip", "hlo_flops_per_chip",
+                    "useful_flops_ratio", "params_total")}}
+    calls = out["gemma2-9b decode_32k"]["kernel_calls"].get(
+        "repro_torch.decode_attention", 0)
+    want = attention_calls_per_step(get_config("gemma2-9b"))
+    if calls != want:
+        raise AssertionError(f"[dryrun] B4 in gemma2-9b's census {calls} "
+                             f"times, not {want}")
+    torch.cuda.synchronize()
+    mem1, launches1 = torch.cuda.memory_allocated(), _launches()
+    if mem1 != mem0 or launches1 != launches0:
+        raise AssertionError(f"[dryrun] the traces touched the card: "
+                             f"memory {mem0} -> {mem1}, launches "
+                             f"{launches0} -> {launches1}")
+    return {"cells": out, "b4_calls_gemma2": calls,
+            "memory_allocated_delta": mem1 - mem0,
+            "launches_delta": {k: launches1[k] - launches0[k]
+                               for k in launches1}}
+
+
+def phase_audits() -> dict:
+    """The capture audit on the card (UQ1 static and adaptive: one static
+    buffer set and one CUDA-graph capture per capacity class over sizes
+    200, 300, 1400, 1500, 300, with the launch counts set to 0 just before
+    and read just after), then the lint gate (``python -m
+    repro_torch.analysis --layers ast``).  Any finding fails the run."""
+    from repro_torch.analysis.recompile import audit_recompile_engine
+    from repro_torch.analysis.trace_audit import build_engine
+    from repro_torch.kernels import build
+    out = {}
+    for plan in ("static", "adaptive"):
+        eng = build_engine("uq1", plan, device="cuda")
+        build.reset_launch_counts()
+        findings, report = audit_recompile_engine(eng, f"uq1-{plan}")
+        report["launches"] = _launches()
+        if findings or not report["graphs"] or report["captures"] != len(
+                report["capacity_classes"]):
+            raise AssertionError(f"[audits] {plan}: "
+                                 f"{[f.render() for f in findings]} {report}")
+        _require_probes(f"audits {plan}", report["launches"])
+        out[plan] = report
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--layers", "ast",
+         "--json"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    if gate.returncode != 0:
+        raise AssertionError(f"[audits] lint gate exit {gate.returncode}: "
+                             f"{gate.stdout[-2000:]}{gate.stderr[-2000:]}")
+    stats = json.loads(gate.stdout)["stats"]
+    out["lint"] = {"rc": gate.returncode, "active": stats["active"],
+                   "suppressed": stats["suppressed"],
+                   "stale_baseline": stats["stale_baseline"],
+                   "wall_s": time.perf_counter() - t0}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=float, default=UQ1_SCALE,
@@ -4009,6 +4110,18 @@ def main(argv=None) -> int:
     ms_out = phase_model_sharding()
     print("[model-sharding] " + json.dumps(ms_out), flush=True)
     mark("model-sharding")
+
+    # 16. the dry-run's census on three traced steps, then the audits
+    dry_out = phase_dryrun()
+    att_row["dryrun_census_calls"] = {
+        "gemma2-9b decode_32k": dry_out["b4_calls_gemma2"]}
+    print("[dryrun] " + json.dumps(dry_out), flush=True)
+    mark("dryrun")
+    aud_out = phase_audits()
+    for plan in ("static", "adaptive"):
+        path_launches(f"[audits] UQ1 {plan} (scale 0.02)", aud_out[plan])
+    print("[audits] " + json.dumps(aud_out), flush=True)
+    mark("audits")
 
     cuts = [f"{what} {got:g} (full: {full:g})" for what, got, full in (
         ("UQ1 scale", args.scale, UQ1_SCALE),

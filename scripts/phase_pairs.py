@@ -10,12 +10,16 @@ time:
 
 * ``train`` — ``phase_train()`` (the smoke parity steps, then unionlm-100m
   through ``launch.train.main``, two profiled steps and the restart);
+* ``lm`` — ``phase_lm`` for every ``LM_ARCHS`` entry, then
+  ``phase_lm_cli()``;
 * ``lm-families`` — ``phase_lm_family`` for every ``FAMILY_ARCHS`` entry
   of that checkout, then ``phase_lm_cli("zamba2-7b")``;
 * ``train-families`` — ``phase_train_families()`` (``[train-families]``),
   where the checkout has it;
 * ``model-sharding`` — ``phase_model_sharding()``, where the checkout has
-  it.
+  it;
+* ``dryrun``, ``audits`` — ``phase_dryrun()`` and ``phase_audits()``,
+  where the checkout has them.
 
 Each process writes its phases' full output and wall seconds to
 ``<out>/<round>-<label>.json`` (``--out``, default ``build/phase_pairs``)
@@ -60,6 +64,9 @@ for ph in phases:
     t0 = time.perf_counter()
     if ph == "train":
         got = c.phase_train()
+    elif ph == "lm":
+        got = {a: c.phase_lm(a) for a in c.LM_ARCHS}
+        got["smoke_cli"] = c.phase_lm_cli()
     elif ph == "lm-families":
         got = {a: c.phase_lm_family(a, n, k) for a, n, k in c.FAMILY_ARCHS}
         got["smoke_cli"] = c.phase_lm_cli("zamba2-7b")
@@ -71,6 +78,10 @@ for ph in phases:
         if not hasattr(c, "phase_model_sharding"):
             continue
         got = c.phase_model_sharding()
+    elif ph in ("dryrun", "audits"):
+        if not hasattr(c, "phase_" + ph):
+            continue
+        got = getattr(c, "phase_" + ph)()
     else:
         raise SystemExit(f"unknown phase {ph}")
     res[ph] = {"wall_s": time.perf_counter() - t0, "out": got}
@@ -92,17 +103,23 @@ def _summary(res: dict) -> dict:
             "steady_tokens_per_s": t.get("steady_tokens_per_s"),
             "profile": {k: v for k, v in t.get("profile", {}).items()
                         if not isinstance(v, (list, dict))}}
-    if "lm-families" in res:
-        fam = res["lm-families"]["out"]
-        out["lm-families"] = {"wall_s": res["lm-families"]["wall_s"]}
-        for a, r in fam.items():
+    for ph in ("lm", "lm-families"):
+        if ph not in res:
+            continue
+        out[ph] = {"wall_s": res[ph]["wall_s"]}
+        for a, r in res[ph]["out"].items():
             if a == "smoke_cli" or not isinstance(r, dict):
                 continue
             sl = r.get("serve_lm", {})
-            out["lm-families"][a] = {
+            out[ph][a] = {
                 "wall_s": r.get("wall_s"),
                 "steps_per_s": sl.get("steps_per_s"),
-                "tokens_per_s": sl.get("tokens_per_s")}
+                "tokens_per_s": sl.get("tokens_per_s"),
+                "b4_launches_per_step": sl.get(
+                    "b4_launches_per_step", r.get("b4_launches_per_step"))}
+    for ph in ("dryrun", "audits"):
+        if ph in res:
+            out[ph] = {"wall_s": res[ph]["wall_s"], "out": res[ph]["out"]}
     if "model-sharding" in res:
         out["model-sharding"] = res["model-sharding"]["out"]
     if "train-families" in res:

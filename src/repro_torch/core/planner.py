@@ -158,7 +158,7 @@ def alloc_batches(base_batches: Sequence[int], probs, ema_seed_accept,
     return tuple(out)
 
 
-def budget_for(need, bank_count, ema_accept, bmax, drain_w, xp):
+def budget_for(need, bank_count, ema_accept, bmax, drain_w, xp):  # analysis: fixed-point
     """Integer candidate budget per piece — identical under numpy and torch.
 
     ``need`` minus usable bank coverage, divided by the accept EMA (ceil),
@@ -175,7 +175,7 @@ def budget_for(need, bank_count, ema_accept, bmax, drain_w, xp):
     return xp.where(need_eff > 0, b, 0)
 
 
-def ema_update(ema, drawn, counts, shifts, xp):
+def ema_update(ema, drawn, counts, shifts, xp):  # analysis: fixed-point
     """One EMA step from this round's per-piece counts (all int32).
 
     ``counts`` is ``(nj, 4)`` — (accepted, walk_ok, residual, pred) — and

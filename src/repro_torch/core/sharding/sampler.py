@@ -410,7 +410,7 @@ class ShardedUnionSampler(TorchUnionSampler):
         bs = self.shard_piece_batches
         fps = {}
 
-        def fp_of(j, attrs):
+        def fp_of(j: int, attrs: Tuple[str, ...]):
             if (j, attrs) not in fps:
                 cols = [rows_j[j][a] for a in attrs]
                 fps[(j, attrs)] = (fp32(cols, salt=1), fp32(cols, salt=2))

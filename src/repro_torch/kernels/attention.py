@@ -17,6 +17,14 @@ the kept rows of every work item, a (b, kv head) pair and at most 8 of its
 query heads, into one balanced run of tiles per CTA on the device, then
 the attention kernel, which also merges the items that span CTAs) to
 ``build.launch_counts["decode_attention"]``.
+
+The call goes through the dispatcher as the operator
+``torch.ops.repro_torch.decode_attention``: its CPU implementation is the
+plain version, its CUDA implementation the launch, and its Meta
+implementation gives ``q``'s shape and dtype, so a step traced on meta
+tensors (:mod:`repro_torch.launch.dryrun`; the kernel's shape checks hold
+there as on the card) reaches B4 by name, launches nothing and counts
+``4·B·H·min(S, window or S)·D`` FLOPs for it (``torch.utils.flop_counter``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .build import launch, load, stream
 
@@ -87,23 +96,36 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,D), k/v (B,S,KVH,D), lengths (B,) -> (B,H,D) in q's dtype."""
     _check(q, k, v, lengths)
     dev = q.device
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, scale=scale,
-                                      softcap=softcap, window=window)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {dev}")
-    B, H, D = q.shape
-    S, KVH = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS or H // KVH > KERNEL_MAX_GROUP:
-        raise ValueError(f"decode_attention: the kernel takes D in "
-                         f"{KERNEL_HEAD_DIMS} and at most {KERNEL_MAX_GROUP} "
-                         f"query heads per KV head, got D={D}, G={H // KVH}")
-    if window < 0:
-        raise ValueError(f"decode_attention: window {window} < 0")
+    if dev.type != "cpu":       # the card, or a traced step of it (meta)
+        H, D = q.shape[1], q.shape[2]
+        if D not in KERNEL_HEAD_DIMS or H // k.shape[2] > KERNEL_MAX_GROUP:
+            raise ValueError(
+                f"decode_attention: the kernel takes D in {KERNEL_HEAD_DIMS} "
+                f"and at most {KERNEL_MAX_GROUP} query heads per KV head, got "
+                f"D={D}, G={H // k.shape[2]}")
+        if window < 0:
+            raise ValueError(f"decode_attention: window {window} < 0")
+    return torch.ops.repro_torch.decode_attention(
+        q, k, v, lengths, None if scale is None else float(scale),
+        float(softcap), int(window))
+
+
+def _decode_attention_cpu(q, k, v, lengths, scale, softcap, window):
+    return decode_attention_plain(q, k, v, lengths, scale=scale,
+                                  softcap=softcap, window=window)
+
+
+def _decode_attention_cuda(q, k, v, lengths, scale, softcap, window):
+    """The launch: the plan kernel, then the attention kernel."""
+    dev = q.device
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()) or any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attention: q, k, v must be contiguous and "
                          "16-byte aligned")
+    B, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -120,6 +142,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            B, H, S, KVH, D, float(scale), float(softcap), int(window), ctas,
            scratch.data_ptr(), n_scratch, out.data_ptr(), stream(dev))
     return out
+
+
+def _decode_attention_meta(q, k, v, lengths, scale, softcap, window):
+    return torch.empty_like(q)
+
+
+# B4 as an operator of the dispatcher, registered with torch.library's
+# low-level API: ``torch.library.custom_op`` costs about four times as much
+# host time a call (an aliasing check and an autograd wrapper in Python)
+# and imports torch.distributed.tensor and dynamo on its first call,
+# seconds inside the first served decode step (PERF.md §6).  The
+# Meta implementation is what meta and fake tensors run.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, "
+            "float? scale, float softcap, int window) -> Tensor")
+_LIB.impl("decode_attention", _decode_attention_cpu, "CPU")
+_LIB.impl("decode_attention", _decode_attention_cuda, "CUDA")
+_LIB.impl("decode_attention", _decode_attention_meta, "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_attention_flops(q_shape, k_shape, v_shape, lengths_shape, scale,
+                            softcap, window, *args, out_shape=None,
+                            **kwargs) -> int:
+    """QK^T and PV over the kept positions: 4·B·H·min(S, window or S)·D."""
+    B, H, D = q_shape
+    S = k_shape[1]
+    return 4 * B * H * min(S, window or S) * D
 
 
 @functools.lru_cache(maxsize=None)

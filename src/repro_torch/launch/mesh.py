@@ -27,8 +27,12 @@ pods moves only the gradient reduction (and the int8 variant,
   (:func:`axis_group`, the ``mesh.get_group("model")`` of one axis) and
   the rank's coordinates (:func:`axis_index`, ``jax.lax.axis_index``), as
   :func:`repro_torch.models.moe.moe_ffn_dist` is.
-* ``cost_analysis_dict`` reads XLA's cost analysis of a compiled program;
-  its counterpart comes with the dry-run (ROADMAP §A 8).
+* ``cost_analysis_dict`` reads XLA's cost analysis of a compiled program
+  and has no counterpart: the dry-run (:mod:`repro_torch.launch.dryrun`)
+  compiles nothing, counts a traced step instead
+  (:mod:`repro_torch.launch.hlo_census`), and reports XLA's own figures
+  (``cost_raw``, ``temp_bytes``, ``alias_bytes``, ``code_bytes``) as
+  ``null`` with the reason.
 
 Importing this module touches no process group and no device.
 """

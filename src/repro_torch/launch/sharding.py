@@ -33,8 +33,9 @@ values; without a mesh they are no-ops, and eager PyTorch has no
 counterpart to a constraint.  The reference's train CLI runs no mesh, and
 the port adds no sharded train loop: these rules describe the layouts,
 :func:`repro_torch.models.moe.moe_ffn_dist` runs the one per-rank path the
-reference runs under ``shard_map``, and the dry-run counterpart (ROADMAP §A
-8) consumes the rules to count the sharded work.
+reference runs under ``shard_map``, and the dry-run
+(:mod:`repro_torch.launch.dryrun`) consumes the rules for each rank's
+argument bytes (its traced step is the port's own "dp+ep" program).
 """
 
 from __future__ import annotations

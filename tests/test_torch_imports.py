@@ -36,7 +36,19 @@ new = {"repro_torch.core.distributed", "repro_torch.core.torch_sampler",
        "repro_torch.data.encode", "repro_torch.data.pipeline",
        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
        "repro_torch.launch.ft", "repro_torch.launch.train",
-       "repro_torch.launch.mesh", "repro_torch.launch.sharding"}
+       "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+       "repro_torch.launch.dryrun", "repro_torch.launch.hlo_census",
+       "repro_torch.analysis", "repro_torch.analysis.findings",
+       "repro_torch.analysis.lint", "repro_torch.analysis.recompile",
+       "repro_torch.analysis.trace_audit", "repro_torch.analysis.rules",
+       "repro_torch.analysis.rules.capture_sync",
+       "repro_torch.analysis.rules.estimator_pull",
+       "repro_torch.analysis.rules.fallbacks",
+       "repro_torch.analysis.rules.fixed_point",
+       "repro_torch.analysis.rules.int32_packing",
+       "repro_torch.analysis.rules.locks",
+       "repro_torch.analysis.rules.nondeterminism",
+       "repro_torch.analysis.rules.stats_width"}
 print(len(names), "modules;", "leaked:", bad, "missing:", new - set(names))
 sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)
 """

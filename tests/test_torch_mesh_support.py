@@ -27,6 +27,8 @@ The workers check on every rank:
   plus the fetch, rows in their home piece, banks drained;
 * :func:`check_online` — ``OnlineUnionSampler(mesh=)`` smoke: every size
   accumulator's count is a multiple of ``world · rw_batch``;
+* :func:`trace_audit_ranks` (world 2; ``tests/test_torch_analysis.py``)
+  — the trace audit's collectives per round of both sharded loops;
 * :func:`model_sharding` (world 8; ``tests/test_torch_model_sharding.py``)
   — ``tree_shardings``' placements on a (2, 4) ``DeviceMesh``, and
   ``moe_ffn_dist`` on (2, 4) and (2, 2, 2) meshes, and ``forward_train``
@@ -271,6 +273,21 @@ def check_online(world: int) -> None:
     assert counts and all(c % (world * 64) == 0 and c > 0
                           for c in counts.values()), counts
     _same_on_every_rank(out.matrix(), world)
+
+
+def trace_audit_ranks(world: int) -> None:
+    """``repro_torch.analysis.trace_audit.audit_sharded`` on every rank: one
+    round of the sharded device loop is the per-rank round (the
+    fingerprint exchange's all_gather and reduce_scatter) plus one banking
+    all_gather, one round of its host loop the same per-rank round plus
+    one all_gather of the matrices; both plans."""
+    from repro_torch.analysis.trace_audit import audit_sharded
+    for plan in ("static", "adaptive"):
+        findings, report = audit_sharded(world, f"w{world}-{plan}", plan=plan)
+        assert findings == [], [f.render() for f in findings]
+        assert report["local_collectives"] == ["all-gather", "reduce-scatter"]
+        assert report["collectives"] == report["host_collectives"] == [
+            "all-gather", "reduce-scatter", "all-gather"]
 
 
 def world2(world: int) -> None:
