@@ -3635,8 +3635,9 @@ def phase_audits() -> dict:
     """The capture audit on the card (UQ1 static and adaptive: one static
     buffer set and one CUDA-graph capture per capacity class over sizes
     200, 300, 1400, 1500, 300, with the launch counts set to 0 just before
-    and read just after), then the lint gate (``python -m
-    repro_torch.analysis --layers ast``).  Any finding fails the run."""
+    and read just after), then the whole gate as a user runs it (``python
+    -m repro_torch.analysis``: the lint, and the trace and capture audits
+    on the card, its default device).  Any finding fails the run."""
     from repro_torch.analysis.recompile import audit_recompile_engine
     from repro_torch.analysis.trace_audit import build_engine
     from repro_torch.kernels import build
@@ -3654,16 +3655,22 @@ def phase_audits() -> dict:
         out[plan] = report
     t0 = time.perf_counter()
     gate = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis", "--layers", "ast",
-         "--json"], capture_output=True, text=True, timeout=300,
+        [sys.executable, "-m", "repro_torch.analysis", "--json"],
+        capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
     if gate.returncode != 0:
-        raise AssertionError(f"[audits] lint gate exit {gate.returncode}: "
+        raise AssertionError(f"[audits] gate exit {gate.returncode}: "
                              f"{gate.stdout[-2000:]}{gate.stderr[-2000:]}")
     stats = json.loads(gate.stdout)["stats"]
-    out["lint"] = {"rc": gate.returncode, "active": stats["active"],
+    if not stats["audits"] or not all(
+            r["device"].startswith("cuda") and r.get("graphs", True)
+            for r in stats["audits"]):
+        raise AssertionError(f"[audits] the gate's audits did not run on "
+                             f"the card: {stats['audits']}")
+    out["gate"] = {"rc": gate.returncode, "active": stats["active"],
                    "suppressed": stats["suppressed"],
                    "stale_baseline": stats["stale_baseline"],
+                   "audits": len(stats["audits"]),
                    "wall_s": time.perf_counter() - t0}
     return out
 

@@ -24,13 +24,17 @@ Usage::
     python -m repro_torch.analysis [paths...]        # default src/repro_torch
         [--baseline PATH]                # default: the package's baseline
         [--layers ast,trace,recompile]   # default: all three
+        [--device cpu]                   # the audits' device (default: cuda)
         [--json] [--stats artifacts/analysis_stats.json] [--list-rules]
 
 The reference's ``--require-jax`` has no counterpart: the audit layers need
-only torch, which the port always has.  The audits run on the CPU
-(``chip_smoke.py``'s ``[audits]`` runs the capture audit on the card).
-Exit codes: 0 clean (modulo
-baseline), 1 active findings, 2 usage/internal error.
+only torch, which the port always has.  The audits run on the card, as
+every entry point of the port does: there the recompile layer also checks
+one CUDA-graph capture per capacity class.  Without a card they raise
+(exit 2) unless ``--device cpu`` is given, which runs the same engines
+eagerly (no capture to count).  The ``ast`` layer needs no device.
+Exit codes: 0 clean (modulo baseline), 1 active findings, 2
+usage/internal error.
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ def main(argv=None) -> int:
                     help="baseline JSON of justified, suppressed findings")
     ap.add_argument("--layers", default=None,
                     help="comma list from {ast,trace,recompile}")
+    ap.add_argument("--device", default=None,
+                    help="the audits' torch device (default: cuda; 'cpu' "
+                         "runs the engines eagerly)")
     ap.add_argument("--json", action="store_true", dest="as_json",
                     help="emit findings as JSON on stdout")
     ap.add_argument("--stats", metavar="PATH", default=None,
@@ -93,14 +100,21 @@ def main(argv=None) -> int:
     reports = []
     if "ast" in layers:
         findings.extend(run_lint(paths))
+    if {"trace", "recompile"} & set(layers):
+        from ..device import resolve_device
+        try:
+            device = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"analysis gate: {e}", file=sys.stderr)
+            return 2
     if "trace" in layers:
         from .trace_audit import run_trace_audit
-        f, r = run_trace_audit()
+        f, r = run_trace_audit(device=device)
         findings.extend(f)
         reports.extend(r)
     if "recompile" in layers:
         from .recompile import run_recompile_audit
-        f, r = run_recompile_audit()
+        f, r = run_recompile_audit(device=device)
         findings.extend(f)
         reports.extend(r)
 

@@ -20,13 +20,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Sequence, Tuple
 
+from ..core.backends.torch_backend import capacity_class
 from .findings import Finding
-
-
-def capacity_class(n: int) -> int:
-    """Output-capacity class for a request of ``n`` rows (mirrors the
-    engine: next power of two, floored at 1024)."""
-    return 1 << max(10, (int(n) - 1).bit_length())
 
 
 def _finding(label: str, message: str, detail: str) -> Finding:
@@ -92,15 +87,18 @@ DEFAULT_RECOMPILE_AUDITS: Tuple[Tuple[str, Dict[str, Any]], ...] = (
 )
 
 
-def run_recompile_audit(audits: Sequence[Tuple[str, Dict[str, Any]]] = None
+def run_recompile_audit(audits: Sequence[Tuple[str, Dict[str, Any]]] = None,
+                        device=None
                         ) -> Tuple[List[Finding], List[Dict[str, Any]]]:
+    """Run the audit matrix on ``device`` (``None``: the card, where each
+    class is also captured once); returns (findings, per-audit reports)."""
     from .trace_audit import build_engine
 
     findings: List[Finding] = []
     reports: List[Dict[str, Any]] = []
     for label, spec in (audits if audits is not None
                         else DEFAULT_RECOMPILE_AUDITS):
-        eng = build_engine(**spec)
+        eng = build_engine(device=device, **spec)
         f, r = audit_recompile_engine(eng, label)
         findings.extend(f)
         reports.append(r)

@@ -64,15 +64,18 @@ def _workload(workload: str):
 
 def build_engine(workload: str = "uq1", plan: str = "static",
                  world: int = 0, round_batch: int = 256,
-                 fused_rounds: str = "device", device: str = "cpu",
-                 seed: int = 11):
-    """Build the real engine a tier-1 run would use, on a small workload.
+                 fused_rounds: str = "device", device=None, seed: int = 11):
+    """Build the real engine a tier-1 run would use, on a small workload,
+    on ``device`` (``None``: the card; it raises without one unless
+    ``device="cpu"``).
 
     ``world=0`` returns an unsharded ``TorchUnionSampler``; ``world>=1``
     builds the mesh path (``ShardedUnionSampler``) with that many ranks,
     which needs a process group of ``world`` ranks when ``world > 1``."""
     from ..core.union_sampler import SetUnionSampler
+    from ..device import resolve_device
 
+    device = resolve_device(device)
     wl, cover = _workload(workload)
     kwargs: Dict[str, Any] = {}
     if world:
@@ -135,13 +138,13 @@ def _same_position(a, b) -> bool:
 CHUNK_ROUNDS = 4
 
 def audit_unsharded(workload: str, plan: str, label: str, n: int = 600,
-                    round_batch: int = 256
+                    round_batch: int = 256, device=None
                     ) -> Tuple[List[Finding], Dict[str, Any]]:
     """One ``sample(n)`` of the device loop and of the host loop from the
-    same seed on the CPU: no collective in either, the same rounds, the
-    same stream position after the call."""
+    same seed on ``device`` (``None``: the card): no collective in either,
+    the same rounds, the same stream position after the call."""
     dev, host = (build_engine(workload, plan, round_batch=round_batch,
-                              fused_rounds=mode)
+                              fused_rounds=mode, device=device)
                  for mode in ("device", "host"))
     # one chunk of more rounds than the call needs: the gated rounds drew
     # uniforms that the device loop must take back
@@ -169,6 +172,7 @@ def audit_unsharded(workload: str, plan: str, label: str, n: int = 600,
             "unchecked", f"wasted={dev.last_wasted_rounds}"))
     report = {
         "label": label, "kind": "unsharded", "plan": plan, "n": n,
+        "device": str(dev.device),
         "rounds": dev.last_rounds,
         "gated_rounds": dev.last_wasted_rounds,
         "collectives": dev_cols + host_cols,
@@ -209,7 +213,7 @@ def _round_collectives(eng, n: int) -> Tuple[List[str], List[str]]:
 
 
 def audit_sharded(world: int, label: str, plan: str = "static",
-                  n: int = 1000, round_batch: int = 256
+                  n: int = 1000, round_batch: int = 256, device=None
                   ) -> Tuple[List[Finding], Dict[str, Any]]:
     """One round of the sharded device loop and of its host loop at
     ``world`` ranks (this process one of them): the device round is the
@@ -217,7 +221,8 @@ def audit_sharded(world: int, label: str, plan: str = "static",
     same per-rank round plus one ``all_gather`` of the matrices; at world 1
     all three are empty."""
     dev, host = (build_engine("uq1", plan, world=world,
-                              round_batch=round_batch, fused_rounds=mode)
+                              round_batch=round_batch, fused_rounds=mode,
+                              device=device)
                  for mode in ("device", "host"))
     dev_cols, dev_local = _round_collectives(dev, n)
     host_cols, host_local = _round_collectives(host, n)
@@ -238,6 +243,7 @@ def audit_sharded(world: int, label: str, plan: str = "static",
             f"round={host_cols} local={host_local}"))
     report = {
         "label": label, "kind": "sharded", "plan": plan, "world": world,
+        "device": str(dev.device),
         "collectives": dev_cols, "host_collectives": host_cols,
         "local_collectives": dev_local, "findings": len(findings),
     }
@@ -255,16 +261,18 @@ DEFAULT_AUDITS: Tuple[Tuple[str, Dict[str, Any]], ...] = (
 )
 
 
-def run_trace_audit(audits: Sequence[Tuple[str, Dict[str, Any]]] = None
+def run_trace_audit(audits: Sequence[Tuple[str, Dict[str, Any]]] = None,
+                    device=None
                     ) -> Tuple[List[Finding], List[Dict[str, Any]]]:
-    """Run the audit matrix; returns (findings, per-audit reports)."""
+    """Run the audit matrix on ``device`` (``None``: the card); returns
+    (findings, per-audit reports)."""
     findings: List[Finding] = []
     reports: List[Dict[str, Any]] = []
     for label, spec in (audits if audits is not None else DEFAULT_AUDITS):
         if "world" in spec:
-            f, r = audit_sharded(label=label, **spec)
+            f, r = audit_sharded(label=label, device=device, **spec)
         else:
-            f, r = audit_unsharded(label=label, **spec)
+            f, r = audit_unsharded(label=label, device=device, **spec)
         findings.extend(f)
         reports.append(r)
     return findings, reports

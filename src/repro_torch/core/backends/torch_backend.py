@@ -911,6 +911,13 @@ class _LoopState:
     gcount: Optional[torch.Tensor] = None
 
 
+def capacity_class(n: int) -> int:
+    """The output-capacity class ``C`` of a request of ``n`` rows: the next
+    power of two, floored at 1024.  The device loop keeps one
+    :class:`_CallBuffers` (and on the card one captured round) per class."""
+    return 1 << max(10, (int(n) - 1).bit_length())
+
+
 class _CallBuffers:
     """The static per-call buffers of one capacity class ``C``.
 
@@ -1342,7 +1349,7 @@ class TorchUnionSampler:
     def _run_loop(self, n: int) -> _PendingSample:
         if self._state is None:
             self._state = self._init_state()
-        cb = self._call_buffers(1 << max(10, (n - 1).bit_length()))
+        cb = self._call_buffers(capacity_class(n))
         device_loop = self.fused_rounds == "device"
         if device_loop and self._graphs() and cb.graph is None:
             self._capture(cb)

@@ -73,7 +73,7 @@ import math
 import os
 import time
 import traceback
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -319,69 +319,35 @@ def argument_bytes(arch: str, shape_name: str, mesh) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Depth:
-    """How a model's depth is counted in blocks: what a block is, the full
-    count, the length of the stacks ``forward_hidden`` loops over and the
-    layers of such a stack in one block, and the config whose loops run
-    ``u`` blocks (``decode_step`` counts its layers from the config)."""
+    """How a model's depth is counted in blocks: what a block is and the
+    full count (the steps' ``_blocks`` keyword runs the first few)."""
 
     block: str
     blocks: int
-    stack: int
-    per_block: int
-    at: Callable[[int], ModelConfig]
 
 
 def depth_units(cfg: ModelConfig) -> Optional[Depth]:
     """The model's blocks, or ``None`` where they are not alike (an encoder
-    and a decoder of different depths; a zamba2 group as long as the
-    groups' stack, which the loop cannot tell apart)."""
-    rep = dataclasses.replace
+    and a decoder of different depths)."""
     if cfg.family == "gemma2" and cfg.n_layers % 2 == 0:
-        return Depth("local+global layer pair", cfg.n_layers // 2,
-                     cfg.n_layers, 2, lambda u: rep(cfg, n_layers=2 * u))
+        return Depth("local+global layer pair", cfg.n_layers // 2)
     if cfg.family == "zamba2":
-        per, tail = cfg.mamba_per_attn + 1, cfg.n_zamba_tail
-        G = cfg.n_zamba_groups
-        if G in (cfg.mamba_per_attn, max(tail, 1)):
-            return None
         return Depth(f"group of {cfg.mamba_per_attn} SSM layers + the "
-                     "shared block", G, G, 1,
-                     lambda u: rep(cfg, n_layers=u * per + tail))
+                     "shared block", cfg.n_zamba_groups)
     if cfg.family == "encdec":
         if cfg.n_enc_layers != cfg.n_layers:
             return None
-        return Depth("encoder layer + decoder layer", cfg.n_layers,
-                     cfg.n_layers, 1,
-                     lambda u: rep(cfg, n_layers=u, n_enc_layers=u))
-    return Depth("layer", cfg.n_layers, cfg.n_layers, 1,
-                 lambda u: rep(cfg, n_layers=u))
+        return Depth("encoder layer + decoder layer", cfg.n_layers)
+    return Depth("layer", cfg.n_layers)
 
 
-@contextlib.contextmanager
-def _first_blocks(depth: Depth, u: int) -> Iterator[None]:
-    """``forward_hidden``'s loops over a ``depth.stack``-long layer stack
-    run its first ``u`` blocks; the stacked tensors stay whole, so the
-    backward's ``stack`` and the optimizer see the full-depth shapes."""
-    from ..models import transformer
-    full = transformer.layers
-
-    def first(stack):
-        out = full(stack)
-        return out[:u * depth.per_block] if len(out) == depth.stack else out
-
-    transformer.layers = first
-    try:
-        yield
-    finally:
-        transformer.layers = full
-
-
-def _trace(cfg: ModelConfig, arch: str, shape_name: str, mesh,
-           depth: Optional[Depth] = None, u: int = 0
+def _trace(cfg: ModelConfig, arch: str, shape_name: str, mesh, u: int = 0
            ) -> Tuple[CensusResult, int, int]:
     """One rank's step of the cell on meta tensors under the census, over
-    the full model's inputs, running its first ``u`` blocks of ``depth``
-    (every layer without ``depth``): (census, input bytes, output bytes)."""
+    the full model's inputs, running its first ``u`` blocks (every layer
+    with ``u`` 0): (census, input bytes, output bytes).  The stacked
+    tensors stay whole, so the backward and the optimizer see the
+    full-depth shapes."""
     cell = SHAPES[shape_name]
     sizes = axis_sizes(mesh)
     dp = math.prod(sizes[a] for a in data_axes(mesh))
@@ -390,27 +356,26 @@ def _trace(cfg: ModelConfig, arch: str, shape_name: str, mesh,
     ep = (mesh["model"] if "model" in axis_names(mesh)
           and sizes["model"] > 1 else None)
     batch = input_specs(cfg, shape_name, batch=B_loc)
+    blocks = u or None
     if cell.kind == "train":
         tc = _train_config(arch)
         state = train_state_specs(cfg, tc)
         args = (state, batch)
-        fn = make_train_step(cfg, tc)
+        fn = make_train_step(cfg, tc, _blocks=blocks)
     elif cell.kind == "prefill":
         args = (_param_specs(cfg), batch)
-        fn = lambda p, b: mserve.prefill_step(p, cfg, b)  # noqa: E731
+        fn = lambda p, b: mserve.prefill_step(  # noqa: E731
+            p, cfg, b, _blocks=blocks)
     else:
-        run = cfg if depth is None else depth.at(u)
         args = (_param_specs(cfg), batch["cache"], batch["tokens"],
                 batch["lengths"])
         fn = lambda p, c, t, n: mserve.decode_step(  # noqa: E731
-            p, run, c, t, n)
+            p, cfg, c, t, n, _blocks=blocks)
     with contextlib.ExitStack() as stack:
         if ep is not None:
             stack.enter_context(set_mesh(ep))
         if cell.kind != "train":
             stack.enter_context(torch.no_grad())
-        if depth is not None:
-            stack.enter_context(_first_blocks(depth, u))
         out, cs = census(fn, *args)
     return cs, _nbytes(args), _nbytes(out)
 
@@ -427,8 +392,8 @@ def trace_cell(cfg: ModelConfig, arch: str, shape_name: str, mesh, *,
         cs, in_b, out_b = _trace(cfg, arch, shape_name, mesh)
         return cs, {"scaled": False, "blocks": None if depth is None
                     else depth.blocks}, in_b, out_b
-    one, in_b, out_b = _trace(cfg, arch, shape_name, mesh, depth, 1)
-    two, _, _ = _trace(cfg, arch, shape_name, mesh, depth, 2)
+    one, in_b, out_b = _trace(cfg, arch, shape_name, mesh, 1)
+    two, _, _ = _trace(cfg, arch, shape_name, mesh, 2)
     return scale_census(one, two, depth.blocks), {
         "scaled": True, "block": depth.block, "blocks": depth.blocks,
         "traced_blocks": [1, 2]}, in_b, out_b

@@ -18,8 +18,13 @@ the eager program issues, its backward included:
 * **HBM bytes**: the part of that traffic in tensors of at least
   :data:`L2_RESIDENT_LIMIT` bytes (the reference's ``VMEM_THRESHOLD``);
 * **collectives** by kind from
-  ``torch.distributed.tensor.debug.CommDebugMode`` (counts) and the
-  operands of each c10d operator the census sees (bytes).
+  ``torch.distributed.tensor.debug.CommDebugMode`` (counts) and the input
+  operands of each c10d operator the census sees (bytes), as the
+  reference counts an HLO collective's operands: an all-gather counts its
+  shard, an all-reduce or a reduce-scatter its whole input.  The in-place
+  c10d forms also take their output buffer (``_allgather_base_(output,
+  input)``, ``reduce_scatter_``, ``recv_``); it is not an operand here,
+  so the in-place and functional forms count alike.
 
 ``while_trip_counts`` has no counterpart: every layer loop of the port is
 Python, so a trace holds every layer, and the field is ``{}``.  What stands
@@ -60,7 +65,8 @@ _COLL_KIND = {
     "broadcast_": "broadcast",
 }
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
-               "new_empty_strided", "detach", "lift_fresh"}
+               "new_empty_strided", "detach", "lift_fresh", "wait_tensor",
+               "_wrap_tensor_autograd"}
 
 Tensors = Tuple[Tuple[Tuple[int, ...], str], ...]
 # (operator, its input tensors, its output tensors, collective kind or None)
@@ -71,7 +77,26 @@ def _kind(func) -> Optional[str]:
     ns = func.namespace
     if ns not in ("c10d", "_c10d_functional", "c10d_functional"):
         return None
-    return _COLL_KIND.get(func._schema.name.split("::")[-1], "other")
+    # not a collective: a functional collective's ``wait_tensor`` and
+    # ``_wrap_tensor_autograd``; one missing from the table is caught by
+    # :func:`census`' check against ``CommDebugMode``
+    return _COLL_KIND.get(func._schema.name.split("::")[-1])
+
+
+def _is_output_arg(func, arg: str) -> bool:
+    """A c10d argument that is the collective's output buffer."""
+    return arg.startswith("output") or (
+        arg == "tensors" and func._schema.name.endswith("::recv_"))
+
+
+def _operands(func, args, kwargs) -> list:
+    """The arguments an operator reads: all of them, but for a collective
+    only its inputs (not the in-place forms' output buffers)."""
+    if _kind(func) is None:
+        return [args, kwargs]
+    names = [a.name for a in func._schema.arguments]
+    return ([v for a, v in zip(names, args) if not _is_output_arg(func, a)]
+            + [v for a, v in kwargs.items() if not _is_output_arg(func, a)])
 
 
 def _tensors(tree) -> Tensors:
@@ -91,6 +116,7 @@ class CensusResult:
     flops: float
     bytes_accessed: float        # every operator's operands + results
     hbm_bytes: float             # the part in tensors >= L2_RESIDENT_LIMIT
+    # by kind: the collectives' input operands (an all-gather's shard)
     collective_bytes: Dict[str, float]
     collective_counts: Dict[str, float]
     while_trip_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -137,8 +163,9 @@ class Census(TorchDispatchMode):
         name = func._schema.name.split("::")[-1]
         if func.is_view or name in _NO_TRAFFIC or func.namespace == "prim":
             return out
-        key = (f"{func.namespace}.{name}", _tensors((args, kwargs)),
-               _tensors(out), _kind(func))
+        key = (f"{func.namespace}.{name}",
+               _tensors(_operands(func, args, kwargs)), _tensors(out),
+               _kind(func))
         if key not in self.flops_of:
             f = flop_registry.get(func.overloadpacket)
             self.flops_of[key] = float(f(*args, **kwargs, out_val=out)) \

@@ -230,15 +230,21 @@ def _cross_decode(p, x, xk, xv, cfg: ModelConfig):
 
 
 def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor
+                cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor,
+                *, _blocks: Optional[int] = None
                 ) -> Tuple[Cache, torch.Tensor]:
-    """tokens (B,1), lengths (B,) -> (cache', logits (B,vocab) float32)."""
+    """tokens (B,1), lengths (B,) -> (cache', logits (B,vocab) float32).
+    ``_blocks``: as :func:`~repro_torch.models.transformer.forward_hidden`'s
+    (the first layers, gemma2 pairs, zamba2 groups or decoder layers)."""
     x = _embed_tokens(params, cfg, tokens)
     fam = cfg.family
     new = dict(cache)
+
+    def blocks(n: int) -> range:
+        return range(n if _blocks is None else _blocks)
     if fam in ("dense", "moe", "vlm"):
         stack = _sub(params, "blocks.")
-        for i in range(cfg.n_layers):
+        for i in blocks(cfg.n_layers):
             p = layer(stack, i)
             a, _, _ = _attn_decode(p, x, cache["k"][i], cache["v"][i],
                                    lengths, cfg)
@@ -247,7 +253,7 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                      else _mlp_decode(p, x, cfg))
     elif fam == "gemma2":                   # (local, global) pairs
         stack = _sub(params, "blocks.")
-        for i in range(cfg.n_layers // 2):
+        for i in blocks(cfg.n_layers // 2):
             pe, po = layer(stack, 2 * i), layer(stack, 2 * i + 1)
             a, _, _ = _attn_decode(pe, x, cache["k_loc"][i],
                                    cache["v_loc"][i], lengths, cfg, ring=True)
@@ -260,14 +266,14 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     elif fam == "mamba2":
         stack = _sub(params, "blocks.")
         new["h"] = _state_out(cache, "h")
-        for i in range(cfg.n_layers):
+        for i in blocks(cfg.n_layers):
             x = _mamba_decode_into(layer(stack, i), x, cache["h"][i],
                                    cache["conv"][i], new["h"][i], cfg)
     elif fam == "zamba2":
         shared = _sub(params, "shared.")
         groups = _sub(params, "blocks.")
         new["h"] = _state_out(cache, "h")
-        for g in range(cfg.n_zamba_groups):
+        for g in blocks(cfg.n_zamba_groups):
             gp = layer(groups, g)
             for j in range(cfg.mamba_per_attn):
                 x = _mamba_decode_into(layer(gp, j), x, cache["h"][g, j],
@@ -288,7 +294,7 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                                        new["h_tail"][i], cfg)
     elif fam == "encdec":
         stack = _sub(params, "dec.")
-        for i in range(cfg.n_layers):
+        for i in blocks(cfg.n_layers):
             p = layer(stack, i)
             a, _, _ = _attn_decode(p, x, cache["k"][i], cache["v"][i],
                                    lengths, cfg)
@@ -307,9 +313,11 @@ def decode_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def prefill_step(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor], *,
+                 _blocks: Optional[int] = None) -> torch.Tensor:
     """Inference prefill: full-sequence forward -> last-token logits (B, V)
     in float32.  ``batch["tokens"]`` (B, S), and for ``encdec`` and
-    ``vlm`` ``batch["frontend"]`` (B, n_frontend_tokens, d_model)."""
-    x, _ = forward_hidden(params, cfg, batch)
+    ``vlm`` ``batch["frontend"]`` (B, n_frontend_tokens, d_model).
+    ``_blocks``: as :func:`~repro_torch.models.transformer.forward_hidden`'s."""
+    x, _ = forward_hidden(params, cfg, batch, _blocks=_blocks)
     return _logits(params, cfg, x[:, -1, :])

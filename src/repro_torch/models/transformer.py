@@ -434,12 +434,18 @@ def _tail_stack(params: Dict[str, torch.Tensor], cfg: ModelConfig
 
 
 def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                   batch: Dict[str, torch.Tensor]
+                   batch: Dict[str, torch.Tensor], *,
+                   _blocks: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: returns (final hidden (B,S,d), moe aux loss).
     ``batch["tokens"]`` (B, S); ``encdec`` and ``vlm`` also take
     ``batch["frontend"]`` (B, n_frontend_tokens, d): the encoder's frames
-    or the prepended patch embeddings (vlm's hidden is (B, Np + S, d))."""
+    or the prepended patch embeddings (vlm's hidden is (B, Np + S, d)).
+
+    ``_blocks`` (the dry-run's depth cut) runs only the first ``_blocks``
+    blocks of the full-depth parameters: layers, gemma2's local+global
+    pairs, zamba2's groups (its tail runs whole), encdec's encoder and
+    decoder layers."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     remat = cfg.remat and torch.is_grad_enabled()
@@ -452,6 +458,10 @@ def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     def positions(n, dev):
         return torch.arange(n, device=dev)[None].expand(B, n)
 
+    def blocks(stack, per_block=1):
+        ls = layers(stack)
+        return ls if _blocks is None else ls[:_blocks * per_block]
+
     fam = cfg.family
     if fam in ("encdec", "vlm") and "frontend" not in batch:
         raise KeyError(
@@ -462,30 +472,30 @@ def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     if fam == "encdec":
         enc = batch["frontend"].to(cfg.compute_dtype)         # (B,Tf,d)
         enc_pos = positions(enc.shape[1], enc.device)
-        for p in layers(_sub(params, "enc.")):
+        for p in blocks(_sub(params, "enc.")):
             enc = run(lambda h, p=p: _dense_block(p, h, cfg, enc_pos), enc)
         enc_out = rms_norm(enc, params["enc_final_norm"])
         x = _embed_tokens(params, cfg, tokens)
         pos = positions(S, x.device)
-        for p in layers(_sub(params, "dec.")):
+        for p in blocks(_sub(params, "dec.")):
             x = run(lambda h, c, p=p: _decoder_block(p, h, cfg, pos, c),
                     x, enc_out)
     elif fam == "vlm":
         fe = batch["frontend"].to(cfg.compute_dtype)          # (B,Np,d)
         x = torch.cat([fe, _embed_tokens(params, cfg, tokens)], dim=1)
         pos = positions(x.shape[1], x.device)
-        for p in layers(_sub(params, "blocks.")):
+        for p in blocks(_sub(params, "blocks.")):
             x = run(lambda h, p=p: _dense_block(
                 p, h, cfg, pos, prefix_len=cfg.prefix_len), x)
     elif fam == "mamba2":
         x = _embed_tokens(params, cfg, tokens)
-        for p in layers(_sub(params, "blocks.")):
+        for p in blocks(_sub(params, "blocks.")):
             x = run(lambda h, p=p: _mamba_layer(p, h, cfg), x)
     elif fam == "zamba2":
         x = _embed_tokens(params, cfg, tokens)
         pos = positions(S, x.device)
         shared = _sub(params, "shared.")
-        for gp, g in zip(layers(_sub(params, "blocks.")),
+        for gp, g in zip(blocks(_sub(params, "blocks.")),
                          params["gate"].unbind(0)):
             x = run(lambda h, gp=gp, g=g: _zamba_group(gp, shared, g, h, cfg,
                                                        pos), x)
@@ -496,13 +506,14 @@ def forward_hidden(params: Dict[str, torch.Tensor], cfg: ModelConfig,
         x = _embed_tokens(params, cfg, tokens)
         pos = positions(S, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in layers(_sub(params, "blocks.")):
+        for p in blocks(_sub(params, "blocks.")):
             x, a = run(lambda h, p=p: _moe_block(p, h, cfg, pos), x)
             aux = aux + a
     elif fam in ("dense", "gemma2"):
         x = _embed_tokens(params, cfg, tokens)
         pos = positions(S, x.device)
-        for i, p in enumerate(layers(_sub(params, "blocks."))):
+        for i, p in enumerate(blocks(_sub(params, "blocks."),
+                                     2 if fam == "gemma2" else 1)):
             # gemma2: even layers local (sliding window), odd layers global
             win = cfg.window if fam == "gemma2" and i % 2 == 0 else 0
             x = run(lambda h, p=p, win=win: _dense_block(
@@ -547,14 +558,16 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 
 
 def forward_train(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                  batch: Dict[str, torch.Tensor]
+                  batch: Dict[str, torch.Tensor], *,
+                  _blocks: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (loss, metrics). batch: tokens/targets (B, S) (+ frontend
     embeddings for encdec and vlm).  vlm's ``n_frontend_tokens`` prefix
     positions get ``PAD_ID`` targets, so ``metrics["tokens"]`` counts the
     text targets only; moe's loss is the NLL plus ``0.01 · aux_loss``,
-    ``metrics["loss"]`` the NLL alone."""
-    x, aux_total = forward_hidden(params, cfg, batch)
+    ``metrics["loss"]`` the NLL alone.  ``_blocks``: as
+    :func:`forward_hidden`'s."""
+    x, aux_total = forward_hidden(params, cfg, batch, _blocks=_blocks)
     targets = batch["targets"]
     if cfg.family == "vlm":
         # frontend positions carry no next-token target

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -64,16 +64,18 @@ def lr_at(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return warm * 0.5 * (1 + torch.cos(math.pi * prog))
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
+                    _blocks: Optional[int] = None
                     ) -> Callable[[State, Batch], Tuple[State, Dict]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch:
-    tokens/targets (B, S) on the state's device."""
+    tokens/targets (B, S) on the state's device.  ``_blocks``: as
+    :func:`~repro_torch.models.transformer.forward_hidden`'s."""
 
     def grads_of(params, batch):
         # differentiate wrt compute-dtype copies of every parameter
         p16 = {k: v.detach().to(cfg.compute_dtype).requires_grad_(True)
                for k, v in params.items()}
-        loss, metrics = forward_train(p16, cfg, batch)
+        loss, metrics = forward_train(p16, cfg, batch, _blocks=_blocks)
         # zeros for a parameter the loss does not reach (arctic's
         # res_ln2), as the reference's grad gives
         grads = torch.autograd.grad(loss, list(p16.values()),

@@ -47,11 +47,11 @@ def _rules(findings):
     return sorted({f.rule for f in findings})
 
 
-def _gate(*args, timeout=120):
+def _gate(*args, timeout=120, env=None):
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.analysis", *args],
         capture_output=True, text=True, timeout=timeout,
-        env=dict(os.environ, PYTHONPATH=SRC))
+        env=dict(os.environ, PYTHONPATH=SRC, **(env or {})))
 
 
 # -- layer 1: the captured context and its rules ------------------------------
@@ -363,6 +363,9 @@ def test_gate_exit_codes(tmp_path):
     assert _gate("--layers", "ast", "--baseline", str(bl),
                  str(p)).returncode == 0
     assert _gate("--layers", "jaxpr").returncode == 2
+    # the audit layers run on the card unless --device cpu: no card, exit 2
+    nocard = _gate("--layers", "recompile", env={"CUDA_VISIBLE_DEVICES": ""})
+    assert nocard.returncode == 2 and "CUDA" in nocard.stderr
     assert _gate("--no-such-flag").returncode == 2
     assert _gate("--layers", "ast", "--baseline",
                  str(tmp_path / "missing.json")).returncode == 2
@@ -413,10 +416,10 @@ def test_trace_audit_unsharded_and_world1():
     from repro_torch.analysis.trace_audit import (audit_sharded,
                                                   audit_unsharded)
     findings, report = audit_unsharded("uq1", "static", "uq1-static",
-                                       round_batch=1024)
+                                       round_batch=1024, device="cpu")
     assert findings == [], [f.render() for f in findings]
     assert report["collectives"] == [] and report["same_stream_position"]
-    findings, report = audit_sharded(1, "uq1-sharded-w1")
+    findings, report = audit_sharded(1, "uq1-sharded-w1", device="cpu")
     assert findings == [], [f.render() for f in findings]
     assert report["collectives"] == report["host_collectives"] == []
 
@@ -427,10 +430,17 @@ def test_trace_audit_sharded_world2():
     spawn("trace_audit_ranks", 2, 120.0)
 
 
-def test_recompile_audit_one_buffer_set_per_capacity_class():
+def test_recompile_audit_one_buffer_set_per_capacity_class(monkeypatch):
+    import torch
+
     from repro_torch.analysis.recompile import audit_recompile_engine
     from repro_torch.analysis.trace_audit import build_engine
-    eng = build_engine(workload="uq1", plan="static", round_batch=1024)
+    # the audits' engines are on the card unless the CPU is asked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        build_engine(workload="uq1", plan="static")
+    eng = build_engine(workload="uq1", plan="static", round_batch=1024,
+                       device="cpu")
     findings, report = audit_recompile_engine(eng, "uq1-static")
     assert findings == [], [f.render() for f in findings]
     assert report["capacity_classes"] == report["buffers"] == [1024, 2048]

@@ -12,11 +12,17 @@ traced step (``repro_torch.launch.hlo_census``), on the CPU.
   rank's arguments under 64 GiB, a dominant roofline term, the ``null``
   fields with their reasons;
 * the census's matmul FLOPs of one train step of a one-layer smoke model
-  lie within (1, 4)·``model_flops`` (6·N_active·tokens): the census also
-  counts the loss head's logits (the embedding is not in N_active) and
-  their recompute, attention's QKᵀ and PV, and the MoE's capacity slots;
-  the reference bounds its census by (0.4, 2)·XLA's count
+  over ``model_flops`` (6·N_active·tokens) is held within 2 % of its
+  measured ratio for each arch (:data:`FLOPS_RATIO`): the census also
+  counts the loss head's logits (the embedding is not in N_active) with
+  their recompute, attention's QKᵀ and PV with the backward's recompute
+  of QKᵀ, and the MoE's capacity slots, so every ratio exceeds 1.  A
+  matmul counted twice or a backward dropped moves it by more; the
+  reference bounds its census by (0.4, 2)·XLA's count
   (``tests/test_dryrun_cells.py:45``);
+* a collective's bytes are its input operands (an all-gather's shard, an
+  all-reduce's or a reduce-scatter's whole input), alike for the
+  in-place ``torch.distributed`` form and the functional one;
 * the census scaled from one and two blocks equals the whole trace at
   smoke depth, every record and total, with the L2 limit lowered so that
   the HBM split is not trivially zero (train, prefill and decode; dense,
@@ -119,11 +125,14 @@ def tiny_cells(monkeypatch):
         monkeypatch.setitem(SHAPES, name, ShapeCell(name, S, B, kind))
 
 
-ONE_LAYER = ("minitron-8b", "gemma2-9b", "mamba2-780m",
-             "phi3.5-moe-42b-a6.6b", "arctic-480b")
+# census FLOPs / model_flops of one train step (B 8 × S 64) of the smoke
+# model at one layer (gemma2: one local+global pair), remat off
+FLOPS_RATIO = {"minitron-8b": 2.4324, "gemma2-9b": 1.8381,
+               "mamba2-780m": 2.7370, "phi3.5-moe-42b-a6.6b": 2.6518,
+               "arctic-480b": 3.0374}
 
 
-@pytest.mark.parametrize("arch", ONE_LAYER)
+@pytest.mark.parametrize("arch", sorted(FLOPS_RATIO))
 def test_census_flops_bound_model_flops(tiny_cells, arch):
     cfg = dataclasses.replace(
         get_smoke_config(arch), n_layers=2 if arch == "gemma2-9b" else 1,
@@ -133,7 +142,30 @@ def test_census_flops_bound_model_flops(tiny_cells, arch):
     assert depth["scaled"] is False
     _, active = dryrun.param_counts(cfg)
     ratio = cs.flops / (6.0 * active * 64 * 8)
-    assert 1.0 < ratio < 4.0, ratio
+    assert abs(ratio / FLOPS_RATIO[arch] - 1.0) < 0.02, ratio
+
+
+def test_census_counts_a_collective_by_its_input_operands():
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    shard = torch.empty(8, 16, device="meta")
+    full = torch.empty(32, 16, device="meta")
+    with dryrun.fake_mesh((1, 4), ("data", "model")) as mesh:
+        g = mesh["model"].get_group()
+        _, inplace = hlo_census.census(dist.all_gather_into_tensor, full,
+                                       shard, group=g)
+        _, functional = hlo_census.census(fc.all_gather_tensor, shard, 0, g)
+        _, reduce = hlo_census.census(dist.all_reduce, full, group=g)
+        _, scatter = hlo_census.census(dist.reduce_scatter_tensor, shard,
+                                       full, group=g)
+    assert inplace.collective_bytes == functional.collective_bytes == {
+        "all-gather": 8 * 16 * 4}
+    assert inplace.collective_counts == functional.collective_counts == {
+        "all-gather": 1}
+    assert reduce.collective_bytes == {"all-reduce": 32 * 16 * 4}
+    assert scatter.collective_bytes == {"reduce-scatter": 32 * 16 * 4}
+    # the gathered result is written once: shard read + result written
+    assert inplace.bytes_accessed == (8 + 32) * 16 * 4
 
 
 SCALED = [  # arch, depth overrides, cell, mesh
@@ -144,11 +176,14 @@ SCALED = [  # arch, depth overrides, cell, mesh
     ("zamba2-7b", dict(n_layers=10), "tiny_prefill", (1, 2)),
     ("whisper-medium", dict(n_layers=3, n_enc_layers=3), "tiny_decode",
      (2, 1)),
+    # as many groups as SSM layers in a group, and no tail: the cut is by
+    # block, not by the length of a stack
+    ("zamba2-7b", dict(n_layers=12, mamba_per_attn=3), "tiny_train", (1, 2)),
 ]
+SCALED_IDS = [c[0] for c in SCALED[:-1]] + ["zamba2-7b-groups-as-long"]
 
 
-@pytest.mark.parametrize("arch,over,cell,shape", SCALED,
-                         ids=[c[0] for c in SCALED])
+@pytest.mark.parametrize("arch,over,cell,shape", SCALED, ids=SCALED_IDS)
 def test_scaled_census_equals_the_whole_trace(tiny_cells, monkeypatch, arch,
                                               over, cell, shape):
     monkeypatch.setattr(hlo_census, "L2_RESIDENT_LIMIT", 4096)

@@ -283,7 +283,8 @@ def trace_audit_ranks(world: int) -> None:
     one all_gather of the matrices; both plans."""
     from repro_torch.analysis.trace_audit import audit_sharded
     for plan in ("static", "adaptive"):
-        findings, report = audit_sharded(world, f"w{world}-{plan}", plan=plan)
+        findings, report = audit_sharded(world, f"w{world}-{plan}", plan=plan,
+                                         device="cpu")
         assert findings == [], [f.render() for f in findings]
         assert report["local_collectives"] == ["all-gather", "reduce-scatter"]
         assert report["collectives"] == report["host_collectives"] == [
