@@ -927,7 +927,8 @@ class _CallBuffers:
     reads ``(total, rounds, fail)`` in one copy; ``out`` is ``(C + 1,
     A+1)`` with the trash row at ``C``.  In device mode on the card the
     class also holds its CUDA graph of one round, the kernel launches one
-    replay makes and the capture's wall seconds."""
+    replay makes and the capture's wall seconds; on the card, a pair of
+    timing events that bound a chunk's replays while the spans are on."""
 
     def __init__(self, C: int, nj: int, width: int, device):
         self.C = C
@@ -944,6 +945,9 @@ class _CallBuffers:
         self.replay_launches: Dict[str, int] = {}
         self.capture_s = 0.0
         self.last_rounds = 0        # the previous call's rounds (chunk size)
+        self.events = ((torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                       if torch.device(device).type == "cuda" else None)
 
 
 class _ReadySample:
@@ -972,6 +976,10 @@ class _PendingSample:
     def result(self):
         if self._done is not None:
             return self._done
+        with obs.span("loop.result"):
+            return self._result()
+
+    def _result(self):
         s = self._sampler
         t0 = time.perf_counter() if obs.enabled() else 0.0
         if self._fail:
@@ -984,7 +992,7 @@ class _PendingSample:
             raise RuntimeError("TorchUnionSampler: top-up budget exhausted")
         from ..relation import fingerprint128
         from ..union_sampler import SampleSet
-        with s._on_device():
+        with s._on_device(), obs.span("loop.fetch"):
             flat = self._fetch.cpu().numpy()
         s.last_host_syncs += 1
         s.host_syncs += 1
@@ -993,26 +1001,22 @@ class _PendingSample:
         mat = flat[:k].reshape(self._n, width)
         counters = flat[k:]
         ns, npc = len(_STAT_FIELDS), nj * len(PIECE_STAT_FIELDS)
-        for f, v in zip(_STAT_FIELDS, counters[:ns]):
-            setattr(s.stats, f, getattr(s.stats, f) + int(v))
-        ema = (counters[ns + npc:].reshape(nj, -1) if s.plan == "adaptive"
-               else None)
-        s._fold_piece_stats(counters[ns:ns + npc].reshape(nj, -1),
-                            rounds=self._rounds, samples=self._n, ema=ema)
-        rows = {a: np.ascontiguousarray(mat[:, i]) for i, a in enumerate(s.attrs)}
-        home = np.ascontiguousarray(mat[:, -1])
-        fp = fingerprint128([rows[a] for a in sorted(s.attrs)])
-        self._done = SampleSet(list(s.attrs), rows, home, fp, s.stats)
+        with obs.span("loop.fold"):
+            for f, v in zip(_STAT_FIELDS, counters[:ns]):
+                setattr(s.stats, f, getattr(s.stats, f) + int(v))
+            ema = (counters[ns + npc:].reshape(nj, -1)
+                   if s.plan == "adaptive" else None)
+            s._fold_piece_stats(counters[ns:ns + npc].reshape(nj, -1),
+                                rounds=self._rounds, samples=self._n, ema=ema)
+        with obs.span("loop.fingerprint"):
+            rows = {a: np.ascontiguousarray(mat[:, i])
+                    for i, a in enumerate(s.attrs)}
+            home = np.ascontiguousarray(mat[:, -1])
+            fp = fingerprint128([rows[a] for a in sorted(s.attrs)])
+            self._done = SampleSet(list(s.attrs), rows, home, fp, s.stats)
         if obs.enabled():
             s._obs_handles()["drain"].observe(time.perf_counter() - t0)
         return self._done
-
-
-def _dispatch_annotation():
-    """``torch.profiler`` range around one dispatch (``REPRO_OBS_TRACE=1``)."""
-    if obs.trace_annotations_enabled():
-        return torch.profiler.record_function("repro/sample_dispatch")
-    return contextlib.nullcontext()
 
 
 class TorchUnionSampler:
@@ -1142,6 +1146,9 @@ class TorchUnionSampler:
         self.wasted_rounds = 0
         self.chunk_rounds: Optional[int] = None
         self.capture_seconds: Dict[int, float] = {}
+        # device seconds of the chunks' replays, from CUDA events (on the
+        # card, while the spans are on)
+        self.graph_device_seconds = 0.0
         self._state: Optional[_LoopState] = None
         self._buffers: Dict[int, _CallBuffers] = {}
         self._graph_pool = None
@@ -1340,7 +1347,7 @@ class TorchUnionSampler:
         if n <= 0:
             return _ReadySample(empty_sample_set(list(self.attrs), self.stats))
         t0 = time.perf_counter() if obs.enabled() else 0.0
-        with self._on_device(), _dispatch_annotation():
+        with self._on_device(), obs.span("loop.dispatch"):
             pending = self._run_loop(int(n))
         if obs.enabled():
             self._obs_handles()["dispatch"].observe(time.perf_counter() - t0)
@@ -1364,13 +1371,14 @@ class TorchUnionSampler:
         self.wasted_rounds += self.last_wasted_rounds
         # the call's rows, shuffled, and its counters (the adaptive EMAs
         # too) leave the static buffers in one tensor: the one fetch
-        shuffle = self.uniforms.permutation(n)
-        parts = [self._call_rows(cb, n)[shuffle].reshape(-1).to(torch.int64),
-                 cb.ctr[_CTR_STATS:]]
-        if self.plan == "adaptive":
-            parts.append(self._state.ema.reshape(-1).to(torch.int64))
-        return _PendingSample(self, n, torch.cat(parts), total, rounds,
-                              bool(fail))
+        with obs.span("loop.pack"):
+            shuffle = self.uniforms.permutation(n)
+            parts = [self._call_rows(cb, n)[shuffle].reshape(-1)
+                     .to(torch.int64), cb.ctr[_CTR_STATS:]]
+            if self.plan == "adaptive":
+                parts.append(self._state.ema.reshape(-1).to(torch.int64))
+            fetch = torch.cat(parts)
+        return _PendingSample(self, n, fetch, total, rounds, bool(fail))
 
     def _graphs(self) -> bool:
         """Whether the device loop replays a captured CUDA graph (on the
@@ -1392,7 +1400,8 @@ class TorchUnionSampler:
 
     def _sync(self, cb: _CallBuffers) -> Tuple[int, int, int]:
         """The loop's one host sync: ``(total, rounds, fail)``."""
-        total, rounds, fail = cb.ctr[_CTR_TOTAL:_CTR_STATS].tolist()
+        with obs.span("loop.chunk_sync"):
+            total, rounds, fail = cb.ctr[_CTR_TOTAL:_CTR_STATS].tolist()
         self.last_chunks += 1
         self.last_host_syncs += 1
         self.host_syncs += 1
@@ -1412,14 +1421,24 @@ class TorchUnionSampler:
     def _loop_device(self, cb: _CallBuffers, n: int):
         """``fused_rounds="device"``: chunks of ``K`` rounds (graph replays
         on the card), one sync per chunk; the uniforms that the gated
-        rounds of the last chunk drew are rewound."""
+        rounds of the last chunk drew are rewound.  While the spans are on,
+        two CUDA events on the card bound each chunk's replays; their
+        elapsed time, read after the chunk's sync, adds to
+        ``graph_device_seconds``."""
         K = self.chunk_rounds or max(cb.last_rounds, 1)
         done = 0
         while True:
             K = max(1, min(K, self.max_rounds - done))
             mark = self._mark_uniforms()
+            ev = cb.events if obs.trace_annotations_enabled() else None
+            if ev is not None:
+                ev[0].record()
             self._replay(cb, K)
+            if ev is not None:
+                ev[1].record()
             total, rounds, fail = self._sync(cb)
+            if ev is not None:          # both events are done at the sync
+                self.graph_device_seconds += ev[0].elapsed_time(ev[1]) / 1e3
             ran = rounds - done
             if ran < K:         # gated rounds only once the call is done
                 self._rewind_uniforms(mark, ran)
@@ -1436,12 +1455,13 @@ class TorchUnionSampler:
         """``K`` rounds: graph replays on the card (each adds the kernel
         launches captured in one round to the shared counts), the step
         itself on the CPU."""
-        if cb.graph is None:
+        with obs.span("loop.replay"):
+            if cb.graph is None:
+                for _ in range(K):
+                    self._round_step(cb)
+                return
             for _ in range(K):
-                self._round_step(cb)
-            return
-        for _ in range(K):
-            cb.graph.replay()
+                cb.graph.replay()
         for k, v in cb.replay_launches.items():
             build.launch_counts[k] += v * K
 

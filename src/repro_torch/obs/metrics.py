@@ -21,9 +21,8 @@ The global kill switch is the ``REPRO_OBS`` environment variable: set it to
 (sites check :func:`enabled` before doing host-side work; the registry keeps
 functioning so late scrapes never crash).  Tests and benchmarks toggle at
 runtime with :func:`set_enabled`; ``set_enabled(None)`` re-reads the
-environment.  ``REPRO_OBS_TRACE=1`` additionally turns on host-side
-``torch.profiler.record_function`` annotations around engine dispatch (off
-by default — they cost a little even without an active profiler trace).
+environment.  ``REPRO_OBS_TRACE=1`` (or ``set_tracing(True)``) additionally
+turns on the host spans of :mod:`repro_torch.obs.tracing` (off by default).
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ import threading
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
-    "enabled", "set_enabled", "trace_annotations_enabled",
+    "enabled", "set_enabled",
     "default_latency_buckets", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "get_registry", "set_registry",
 ]
@@ -66,12 +65,8 @@ def set_enabled(on: Optional[bool]) -> None:
     global _enabled_override
     with _enabled_lock:
         _enabled_override = on
-
-
-def trace_annotations_enabled() -> bool:
-    """Host-side ``torch.profiler`` annotations (``REPRO_OBS_TRACE=1``)."""
-    return (enabled() and os.environ.get("REPRO_OBS_TRACE", "")
-            .strip().lower() in ("1", "on", "true", "yes"))
+    from . import tracing           # the spans' switch follows this one
+    tracing.refresh()
 
 
 def default_latency_buckets() -> Tuple[float, ...]:

@@ -31,7 +31,11 @@ Port copy of ``repro.serve.service``; ``python -m repro_torch.launch.serve
 --mode samples`` routes through this class.  The torch engine pins its own
 device and CUDA stream inside ``sample_async`` and finishes a call's round
 loop there (its device loop syncs once per chunk of rounds), so the
-producer's dispatch-then-drain keeps the host loop's carry order.
+producer's dispatch-then-drain keeps the host loop's carry order.  With
+``REPRO_OBS_TRACE=1`` the request path (``serve.request``,
+``serve.lock_wait``, ``serve.queue_wait``, ``serve.assemble``) and the
+producer's wait on a full queue (``serve.put_wait``) are host spans of
+:mod:`repro_torch.obs`.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -119,11 +123,16 @@ class SampleService:
         """Keep the queue warm with ``batch``-sized sample sets.
 
         Engines exposing ``sample_async`` get double-buffered round
-        dispatch: batch *k+1* is launched before batch *k* is drained, so
-        the host-side assembly (fetch, shuffle, fingerprint) of one batch
-        hides behind the device compute of the next — the fused device
-        loop's top-up latency never stalls the queue.  Plain engines fall
-        back to the synchronous path.
+        dispatch: batch *k+1* is dispatched before batch *k* is drained.
+        With the torch engine that does not overlap host and device work:
+        ``sample_async`` returns only after its chunk sync, when the card
+        has run every round of *k+1*, so the drain of *k* (fetch,
+        fingerprint, counter fold) runs on the host while the card has
+        nothing but *k+1*'s pack queued.  The spans (``loop.chunk_sync``
+        against ``loop.result``) show the two in turn: on an H100, an
+        8,192-row UQ1 call at SF 1 waits ~12 ms on the card and spends
+        ~8 ms in its drain and ~1.5 ms launching and packing.  Plain engines
+        fall back to the synchronous path.
         """
         dispatch = getattr(sampler, "sample_async", None)
         pending = None
@@ -141,12 +150,13 @@ class SampleService:
                 self._error = e
                 self._stop.set()
                 return
-            while not self._stop.is_set():
-                try:
-                    self._queue.put(ss, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
+            with obs.span("serve.put_wait"):
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(ss, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
 
     # -------------------------------------------------------------- consumer
     def _next_batch(self, timeout: float) -> SampleSet:
@@ -154,7 +164,8 @@ class SampleService:
             if self._error is not None:
                 raise RuntimeError("sample producer failed") from self._error
             try:
-                return self._queue.get(timeout=min(timeout, 0.2))
+                with obs.span("serve.queue_wait"):
+                    return self._queue.get(timeout=min(timeout, 0.2))
             except queue.Empty:
                 timeout -= 0.2
                 if timeout <= 0:
@@ -222,34 +233,44 @@ class SampleService:
         if n <= 0:
             from ..core.union_sampler import empty_sample_set
             return empty_sample_set(self.attrs, self.stats())
-        parts: List[SampleSet] = []
+        with obs.span("serve.request"):
+            ss = self._take(n, timeout)
+        if t0 is not None:
+            m = self._obs_handles()
+            m["latency"].observe(time.perf_counter() - t0)
+            m["requests"].inc()
+            m["samples"].inc(len(ss))
+        return ss
+
+    def _take(self, n: int, timeout: float) -> SampleSet:
+        """``n`` rows off the stream: the batches' ranges under the lock,
+        then their rows copied into one set outside it."""
+        parts: List[Tuple[SampleSet, int, int]] = []
         got = 0
-        with self._lock:
+        with obs.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
             while got < n:
                 if self._cursor is None:
                     self._cursor = self._next_batch(timeout)
                     self._cursor_pos = 0
                 cur, lo = self._cursor, self._cursor_pos
                 hi = min(lo + n - got, len(cur))
-                parts.append(SampleSet(
-                    cur.attrs, {a: c[lo:hi] for a, c in cur.rows.items()},
-                    cur.home[lo:hi], cur.fingerprint[lo:hi], cur.stats))
+                parts.append((cur, lo, hi))
                 got += hi - lo
                 if hi >= len(cur):
                     self._cursor = None
                 else:
                     self._cursor_pos = hi
             self.served += got
-        rows = {a: np.concatenate([p.rows[a] for p in parts])
-                for a in self.attrs}
-        home = np.concatenate([p.home for p in parts])
-        fp = np.concatenate([p.fingerprint for p in parts])
-        if t0 is not None:
-            m = self._obs_handles()
-            m["latency"].observe(time.perf_counter() - t0)
-            m["requests"].inc()
-            m["samples"].inc(got)
-        return SampleSet(self.attrs, rows, home, fp, self.stats())
+        finally:
+            self._lock.release()
+        with obs.span("serve.assemble"):
+            rows = {a: np.concatenate([p.rows[a][lo:hi] for p, lo, hi in parts])
+                    for a in self.attrs}
+            home = np.concatenate([p.home[lo:hi] for p, lo, hi in parts])
+            fp = np.concatenate([p.fingerprint[lo:hi] for p, lo, hi in parts])
+            return SampleSet(self.attrs, rows, home, fp, self.stats())
 
     def stats(self) -> SamplerStats:
         """Merged cost accounting across all engines (associative merge)."""

@@ -15,7 +15,12 @@ Mirrors ``tests/test_obs.py`` on the port's own registry:
   and sample counters, ``record_fallback``;
 * the serve tier's merged accounting under concurrent requesters and its
   request series (collector removed on ``stop()``), the kill switch;
-* ONLINE-UNION's refinement series.
+* ONLINE-UNION's refinement series;
+* host spans (``obs.span``): off, a shared no-op that reads no clock; on,
+  per-name wall, thread-CPU and count totals, nested and from two threads;
+  ``record_function`` ranges only under a profiler session, and
+  ``trace_time_ns`` against kineto's clock; the serve tier's and the round
+  loop's span sites.
 
 The capture of the round as a CUDA graph is tested on the card by the
 ``cuda``-marked tests of ``test_torch_kernels_cuda.py`` (that file imports
@@ -23,7 +28,9 @@ no ``jax``, so it runs on a machine that has only the port).
 """
 
 import re
+import statistics
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -32,10 +39,13 @@ import pytest
 
 from repro import obs as ref_obs
 
+import torch
+
 from repro_torch import obs
 from repro_torch.core.backends import torch_backend
 from repro_torch.core.framework import estimate_union, warmup
-from repro_torch.core.union_sampler import SamplerStats, SetUnionSampler
+from repro_torch.core.union_sampler import (SamplerStats, SampleSet,
+                                             SetUnionSampler)
 from repro_torch.data.workloads import uq1
 from repro_torch.serve.service import SampleService
 
@@ -58,6 +68,25 @@ def obs_on():
         yield
     finally:
         obs.set_enabled(None)
+
+
+@pytest.fixture
+def spans_on():
+    obs.set_tracing(True)
+    try:
+        yield
+    finally:
+        obs.set_tracing(None)
+
+
+def _span_delta(before, names=None):
+    """Each span's totals since ``before`` (a ``span_totals()``)."""
+    after = obs.span_totals()
+    zero = {"s": 0.0, "cpu_s": 0.0, "n": 0}
+    out = {k: {f: v[f] - before.get(k, zero)[f] for f in zero}
+           for k, v in after.items()}
+    return {k: v for k, v in out.items()
+            if v["n"] and (names is None or k in names)}
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +168,23 @@ def test_kill_switch_env_and_override(monkeypatch):
     monkeypatch.setenv("REPRO_OBS", "on")
     assert obs.enabled()
     monkeypatch.setenv("REPRO_OBS_TRACE", "1")
-    assert obs.trace_annotations_enabled()
+    obs.set_tracing(None)                   # the environment is read here
+    try:
+        assert obs.trace_annotations_enabled()
+        obs.set_tracing(False)
+        assert not obs.trace_annotations_enabled()
+        monkeypatch.delenv("REPRO_OBS_TRACE")
+        obs.set_tracing(True)
+        assert obs.trace_annotations_enabled()
+        obs.set_enabled(False)              # the kill switch wins
+        assert not obs.trace_annotations_enabled()
+        obs.set_enabled(None)
+        assert obs.trace_annotations_enabled()
+    finally:
+        monkeypatch.delenv("REPRO_OBS_TRACE", raising=False)
+        obs.set_tracing(None)
+        obs.set_enabled(None)
+    assert not obs.trace_annotations_enabled()
 
 
 def _ops_counters(m):
@@ -265,11 +310,13 @@ def _assert_same(a, b):
 
 
 def test_parity_unchanged_by_telemetry(registry):
-    """Samples are bitwise identical device vs host, obs on vs off."""
+    """Samples are bitwise identical device vs host, obs on vs off, spans
+    on vs off."""
     wl, cover = _workload()
     streams = {}
-    for obs_state in (True, False):
-        obs.set_enabled(obs_state)
+    for obs_state in (True, False, "spans"):
+        obs.set_enabled(obs_state is not False)
+        obs.set_tracing(obs_state == "spans")
         try:
             dev = _sampler(wl, cover, "device")
             host = _sampler(wl, cover, "host")
@@ -280,8 +327,10 @@ def test_parity_unchanged_by_telemetry(registry):
                                   host.engine.piece_stats)
             streams[obs_state] = dev.sample(200)
         finally:
+            obs.set_tracing(None)
             obs.set_enabled(None)
     _assert_same(streams[True], streams[False])
+    _assert_same(streams[True], streams["spans"])
 
 
 @pytest.mark.parametrize("plan", ["static", "adaptive"])
@@ -411,3 +460,209 @@ def test_online_exposes_refinement_series(registry, obs_on):
         == pytest.approx(s.cover.union_size)
     removed = snap.get("repro_online_backtrack_removed_total")
     assert (removed["series"][()] if removed else 0) == s.backtrack_count
+
+
+# ---------------------------------------------------------------------------
+# host spans
+# ---------------------------------------------------------------------------
+
+
+class _NoClock:
+    """Stands in for the ``time`` module: any read fails."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"time.{name} read while the spans are off")
+
+
+def test_span_off_is_a_shared_noop(registry, monkeypatch):
+    """Off, every site gets one shared context that reads no clock and
+    records nothing, through a whole service round trip on the engine."""
+    from repro_torch.obs import tracing
+    obs.set_tracing(False)
+    try:
+        assert obs.span("a") is obs.span("b")
+        wl, cover = _workload(overlap=0.5, seed=1)
+        s = _sampler(wl, cover, "device", seed=13, round_batch=1024)
+        before = obs.span_totals()
+        with monkeypatch.context() as m:
+            m.setattr(tracing, "time", _NoClock())
+            with SampleService(s, batch=1024, prefetch=1) as svc:
+                assert len(svc.request(700)) == 700
+        assert obs.span_totals() == before
+    finally:
+        obs.set_tracing(None)
+
+
+def test_span_totals_nesting_and_threads(spans_on):
+    before = obs.span_totals()
+    with obs.span("t.outer"):
+        with obs.span("t.busy"):
+            end = time.thread_time() + 0.02         # 20 ms of this thread's CPU
+            while time.thread_time() < end:
+                pass
+        with obs.span("t.sleep"):
+            time.sleep(0.02)
+
+    def work():
+        for _ in range(50):
+            with obs.span("t.thread"):
+                pass
+
+    ts = [threading.Thread(target=work) for _ in range(2)]
+    [t.start() for t in ts]
+    [t.join(timeout=30) for t in ts]
+    assert not any(t.is_alive() for t in ts)
+    d = _span_delta(before)
+    assert {k: v["n"] for k, v in d.items()} == {
+        "t.outer": 1, "t.busy": 1, "t.sleep": 1, "t.thread": 100}
+    assert d["t.outer"]["s"] >= d["t.busy"]["s"] + d["t.sleep"]["s"]
+    assert d["t.busy"]["s"] >= 0.02 and d["t.sleep"]["s"] >= 0.02
+    assert d["t.busy"]["cpu_s"] >= 0.02                      # on the CPU
+    assert d["t.sleep"]["cpu_s"] < 0.5 * d["t.sleep"]["s"]  # off it
+    for v in d.values():
+        assert v["cpu_s"] <= v["s"] + 1e-3
+
+
+def test_span_totals_count_open_spans_so_far(spans_on):
+    """A span open while the totals are read adds what it has run so far,
+    so the change between two reads is the span time between them."""
+    entered, leave = threading.Event(), threading.Event()
+
+    def park():
+        with obs.span("t.open"):
+            entered.set()
+            leave.wait(timeout=30)
+
+    before = obs.span_totals()
+    t = threading.Thread(target=park)
+    t.start()
+    assert entered.wait(timeout=30)
+    time.sleep(0.05)
+    mid = _span_delta(before, {"t.open"})
+    assert mid == {} or mid["t.open"]["n"] == 0     # none closed yet
+    mid = obs.span_totals()["t.open"]
+    time.sleep(0.05)
+    leave.set()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    end = obs.span_totals()["t.open"]
+    first = mid["s"] - before.get("t.open", {"s": 0.0})["s"]
+    assert first >= 0.05 and end["s"] - mid["s"] >= 0.05
+    assert end["n"] - mid["n"] == 1
+    assert 0 <= mid["cpu_s"] <= end["cpu_s"]
+
+
+def test_span_profiler_ranges_only_while_profiling(spans_on, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a):
+        opened.append(name)
+        return real(name, *a)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with obs.span("t.unprofiled"):
+        pass
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("t.profiled"):
+            with obs.span("t.inner"):
+                torch.ones(4).sum()
+    with obs.span("t.after"):
+        pass
+    assert opened == ["t.profiled", "t.inner"]
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {"t.profiled", "t.inner"} <= names
+    assert "t.unprofiled" not in names and "t.after" not in names
+
+
+def test_trace_time_ns_matches_the_profiler_clock(spans_on):
+    """A span's start mapped onto the profiler's clock lies where kineto
+    stamped its range: median under 100 µs, every one under 2 ms."""
+    from torch.profiler import ProfilerActivity, profile
+    starts = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(200):
+            with obs.span(f"t.clock.{i}") as sp:
+                pass
+            starts[f"t.clock.{i}"] = obs.trace_time_ns(sp.t0)
+    kineto = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in starts:
+            kineto[e.name()] = (e.start_ns() if hasattr(e, "start_ns")
+                                else e.start_us() * 1000)
+    assert set(kineto) == set(starts)
+    off = [abs(starts[k] - kineto[k]) for k in starts]
+    assert statistics.median(off) < 100_000
+    assert max(off) < 2_000_000
+
+
+# ---------------------------------------------------------------------------
+# span sites: serve tier and round loop
+# ---------------------------------------------------------------------------
+
+
+class _StubEngine:
+    """``sample(n)`` after ``delay`` seconds: rows 0..n-1 of one column."""
+
+    def __init__(self, delay: float):
+        self.delay = delay
+        self.attrs = ["a"]
+        self.stats = SamplerStats()
+
+    def sample(self, n):
+        time.sleep(self.delay)
+        rows = {"a": np.arange(n, dtype=np.int64)}
+        return SampleSet(["a"], rows, np.zeros(n, np.int64),
+                         np.zeros((n, 2), np.uint64), self.stats)
+
+
+@pytest.mark.parametrize("slow", ["engine", "consumer"])
+def test_serve_spans_say_which_side_is_behind(spans_on, slow):
+    """A slow engine leaves the client waiting on the queue; a slow
+    consumer parks the producer on a full queue."""
+    eng = _StubEngine(0.02 if slow == "engine" else 0.0)
+    before = obs.span_totals()
+    t0 = time.perf_counter()
+    with SampleService(eng, batch=256, prefetch=2) as svc:
+        for _ in range(10):
+            assert len(svc.request(200)) == 200
+            if slow == "consumer":
+                time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    d = _span_delta(before)
+    assert d["serve.request"]["n"] == 10 and d["serve.assemble"]["n"] == 10
+    assert d["serve.lock_wait"]["n"] == 10
+    req, wait = d["serve.request"]["s"], d["serve.queue_wait"]["s"]
+    park = d.get("serve.put_wait", {"s": 0.0})["s"]
+    assert req >= wait + d["serve.assemble"]["s"]
+    if slow == "engine":
+        assert wait > 0.5 * req
+        assert park < 0.1 * wall
+    else:
+        assert wait < 0.5 * req
+        assert park > 0.5 * wall
+
+
+def test_round_loop_spans_nest(spans_on):
+    """Every loop span is recorded by the CPU engine, and each parent's
+    seconds are at least its children's."""
+    wl, cover = _workload()
+    s = _sampler(wl, cover, "device")
+    before = obs.span_totals()
+    for n in (700, 333):
+        s.sample(n)
+    d = _span_delta(before)
+    loop = {k for k in d if k.startswith("loop.")}
+    assert loop == {"loop.dispatch", "loop.replay", "loop.chunk_sync",
+                    "loop.pack", "loop.result", "loop.fetch", "loop.fold",
+                    "loop.fingerprint"}
+    assert d["loop.dispatch"]["n"] == d["loop.result"]["n"] == 2
+    assert d["loop.chunk_sync"]["n"] == d["loop.replay"]["n"] >= 2
+    assert d["loop.dispatch"]["s"] >= sum(
+        d[k]["s"] for k in ("loop.replay", "loop.chunk_sync", "loop.pack"))
+    assert d["loop.result"]["s"] >= sum(
+        d[k]["s"] for k in ("loop.fetch", "loop.fold", "loop.fingerprint"))
+    # the CUDA-event counter reads only on the card
+    assert s.engine.graph_device_seconds == 0.0
