@@ -57,7 +57,7 @@ HOST_SPANS = ("serve.assemble", "loop.replay", "loop.pack", "loop.fold",
               "loop.fingerprint")
 SERIES_SPANS = ("serve.request", "serve.queue_wait", "serve.assemble",
                 "serve.put_wait", "loop.dispatch", "loop.replay",
-                "loop.chunk_sync", "loop.pack", "loop.result",
+                "loop.finish", "loop.chunk_sync", "loop.pack", "loop.result",
                 "loop.fingerprint")
 
 

@@ -31,6 +31,8 @@ bottom-up:
   debugging twin).  The two give bit-identical samples, stats and carry;
   ``sample(n)`` adds one device→host fetch of the result, where the
   engine's counters also reach the metrics registry (:mod:`repro_torch.obs`).
+  ``sample_async(n)`` returns with the call's first chunk in flight, so the
+  drain of the call before it runs on the host meanwhile.
   :class:`TorchRecordUnionSampler` keeps the lazy ``orig_join`` record as a
   sorted-fingerprint multiset instead, host-driven in either mode.
 * :class:`TorchCandidateSource` — fixed-width device rounds of one tree
@@ -961,39 +963,79 @@ class _ReadySample:
 
 
 class _PendingSample:
-    """A finished round loop whose outputs still live on the device: the
-    shuffled rows and the call's counters, gathered into one int64 tensor
-    at dispatch (the next call reuses the class's static buffers).
-    ``result()`` does the one device→host fetch and builds the SampleSet."""
+    """One call of the round loop, from its launch to its drain.
 
-    def __init__(self, sampler, n, fetch, total, rounds, fail):
+    ``sample_async`` launches the call: it enqueues the first chunk of
+    rounds and returns.  The call is finished by the next ``sample_async``
+    of its engine or by ``result()``, whichever comes first: the chunk
+    syncs and any further chunks, the rewind of the gated rounds'
+    uniforms, the pack of the shuffled rows and the call's counters into
+    one int64 tensor (the next call reuses the class's static buffers), and
+    that tensor's copy to the host, started without a sync.  ``result()``
+    drains it: it waits on the copy (the call's one fetch sync), folds the
+    counters and builds the SampleSet, on the host while the card runs a
+    later call's chunk.  The call's own chunks, host syncs and gated rounds
+    are counted here and reach the engine's ``last_*`` attributes at the
+    drain."""
+
+    def __init__(self, sampler, n: int, cb: _CallBuffers):
         self._sampler = sampler
         self._n = int(n)
-        self._fetch = fetch
-        self._total, self._rounds, self._fail = total, rounds, fail
+        self.cb = cb
+        self.rounds = self.chunks = self.host_syncs = self.wasted_rounds = 0
+        self.total = self.fail = 0
+        self.chunk_k = 0        # rounds in the chunk in flight
+        self.mark = None        # the uniform stream's position before it
+        self.timed = False      # its replays bounded by the class's events
+        self._host = self._copied = None
         self._done = None
+
+    def start_copy(self, fetch: torch.Tensor) -> None:
+        """Start the copy of the packed ``fetch`` to the host: on the card
+        into pinned memory from the caching host allocator, with an event
+        after it (``fetch`` itself may go: the stream orders any reuse of
+        its memory after the copy); on the CPU it is ``fetch`` itself."""
+        self._host = fetch
+        if fetch.device.type == "cuda":
+            self._host = torch.empty(fetch.shape, dtype=fetch.dtype,
+                                     pin_memory=True)
+            self._host.copy_(fetch, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
 
     def result(self):
         if self._done is not None:
             return self._done
-        with obs.span("loop.result"):
+        with obs.span("loop.result"), self._sampler._on_device():
             return self._result()
 
     def _result(self):
         s = self._sampler
         t0 = time.perf_counter() if obs.enabled() else 0.0
-        if self._fail:
-            raise RuntimeError("all cover pieces unreachable")
-        # rounds, like every counter, are folded at the fetch (a dispatched
+        if self._host is None:          # the engine's call in flight
+            s._finish(self)
+        if s._inflight is not None:     # a later call's chunk is queued
+            s.overlapped_drains += 1
+            if obs.enabled():
+                s._obs_handles()["overlapped"].inc()
+        # rounds, like every counter, are folded at the drain (a launched
         # call that is never drained adds nothing)
-        s.last_rounds = self._rounds
-        s.total_rounds += self._rounds
-        if self._total < self._n:
+        s.last_rounds, s.last_chunks = self.rounds, self.chunks
+        s.last_host_syncs = self.host_syncs
+        s.last_wasted_rounds = self.wasted_rounds
+        s.total_rounds += self.rounds
+        s.wasted_rounds += self.wasted_rounds
+        if self.fail:
+            raise RuntimeError("all cover pieces unreachable")
+        if self.total < self._n:
             raise RuntimeError("TorchUnionSampler: top-up budget exhausted")
         from ..relation import fingerprint128
         from ..union_sampler import SampleSet
-        with s._on_device(), obs.span("loop.fetch"):
-            flat = self._fetch.cpu().numpy()
+        with obs.span("loop.fetch"):
+            if self._copied is not None:
+                self._copied.synchronize()
+            flat = self._host.numpy()
+        self.host_syncs += 1
         s.last_host_syncs += 1
         s.host_syncs += 1
         nj, width = len(s.order), len(s.attrs) + 1
@@ -1007,13 +1049,15 @@ class _PendingSample:
             ema = (counters[ns + npc:].reshape(nj, -1)
                    if s.plan == "adaptive" else None)
             s._fold_piece_stats(counters[ns:ns + npc].reshape(nj, -1),
-                                rounds=self._rounds, samples=self._n, ema=ema)
+                                rounds=self.rounds, samples=self._n, ema=ema)
         with obs.span("loop.fingerprint"):
-            rows = {a: np.ascontiguousarray(mat[:, i])
-                    for i, a in enumerate(s.attrs)}
-            home = np.ascontiguousarray(mat[:, -1])
+            # copies: no column may alias the host buffer, which the
+            # caching allocator hands to a later call
+            rows = {a: mat[:, i].copy() for i, a in enumerate(s.attrs)}
+            home = mat[:, -1].copy()
             fp = fingerprint128([rows[a] for a in sorted(s.attrs)])
             self._done = SampleSet(list(s.attrs), rows, home, fp, s.stats)
+        self._host = self._copied = None
         if obs.enabled():
             s._obs_handles()["drain"].observe(time.perf_counter() - t0)
         return self._done
@@ -1053,6 +1097,17 @@ class TorchUnionSampler:
     after every round (the reference's debugging twin).  Both give the same
     samples, homes, stats and carry from the same seed.  On the CPU the
     device mode runs the step eagerly in the same chunks.
+
+    A device-loop call has three phases (:class:`_PendingSample`):
+    ``sample_async`` launches it (its first chunk enqueued, no host sync),
+    the next ``sample_async`` or the handle's ``result()`` finishes it (the
+    chunk syncs, the rewind, the pack and the start of the copy to the
+    host, all before any later call's rounds), and ``result()`` drains it
+    (the wait on the copy, the counter fold and the fingerprints).  So a
+    caller that launches call *k+1* before draining call *k* has the host
+    drain *k* while the card runs *k+1*'s chunk (``overlapped_drains``
+    counts such drains); the samples, stats and carry are those of calls
+    made one after the other.
 
     ``plan="adaptive"`` widens the selection slot (``adaptive_slot``), sizes
     the draw widths from the seeded acceptance rates (``alloc_batches``) and
@@ -1149,6 +1204,9 @@ class TorchUnionSampler:
         # device seconds of the chunks' replays, from CUDA events (on the
         # card, while the spans are on)
         self.graph_device_seconds = 0.0
+        # drains that ran while a later call's chunk was in flight
+        self.overlapped_drains = 0
+        self._inflight: Optional[_PendingSample] = None   # launched, unfinished
         self._state: Optional[_LoopState] = None
         self._buffers: Dict[int, _CallBuffers] = {}
         self._graph_pool = None
@@ -1340,50 +1398,84 @@ class TorchUnionSampler:
         return cb
 
     def sample_async(self, n: int):
-        """Run the round loop for ``sample(n)``; the returned handle's
-        ``result()`` does the one device→host fetch (the serve tier
-        dispatches call *k+1* before draining call *k*)."""
+        """Launch the round loop for ``sample(n)`` and return its handle.
+
+        The call in flight, if any, is finished first (its syncs, rewind,
+        pack and copy come before this call's rounds).  The device loop
+        then enqueues this call's first chunk and returns with no host
+        sync, so the caller can drain the earlier call while the card runs
+        this one (the serve tier dispatches call *k+1* before draining
+        call *k*).  Where :meth:`_defers_finish` is false the call is
+        finished here.  ``result()`` finishes the call if nothing has yet
+        and does the one device→host fetch."""
         from ..union_sampler import empty_sample_set
         if n <= 0:
             return _ReadySample(empty_sample_set(list(self.attrs), self.stats))
         t0 = time.perf_counter() if obs.enabled() else 0.0
         with self._on_device(), obs.span("loop.dispatch"):
-            pending = self._run_loop(int(n))
+            if self._inflight is not None:
+                self._finish(self._inflight)
+            call = self._launch(int(n))
+            if not self._defers_finish():
+                self._finish(call)
         if obs.enabled():
             self._obs_handles()["dispatch"].observe(time.perf_counter() - t0)
-        return pending
+        return call
 
-    def _run_loop(self, n: int) -> _PendingSample:
+    def _defers_finish(self) -> bool:
+        """Whether ``sample_async`` returns with the call's first chunk in
+        flight (the device loop) or finishes the call itself (the host
+        loop, which syncs after every round)."""
+        return self.fused_rounds == "device"
+
+    def _launch(self, n: int) -> _PendingSample:
+        """Reset the class's buffers for a call of ``n`` rows and, in the
+        device loop, enqueue its first chunk of ``K`` rounds: the class's
+        previous call's round count (1 at first), or ``chunk_rounds``."""
         if self._state is None:
             self._state = self._init_state()
         cb = self._call_buffers(capacity_class(n))
         device_loop = self.fused_rounds == "device"
         if device_loop and self._graphs() and cb.graph is None:
             self._capture(cb)
-        cb.ctr.zero_()
-        cb.n.fill_(n)
-        self.last_host_syncs = 0
-        self.last_chunks = 0
-        self.last_wasted_rounds = 0
-        loop = self._loop_device if device_loop else self._loop_host
-        total, rounds, fail = loop(cb, n)
-        cb.last_rounds = rounds
-        self.wasted_rounds += self.last_wasted_rounds
-        # the call's rows, shuffled, and its counters (the adaptive EMAs
-        # too) leave the static buffers in one tensor: the one fetch
-        with obs.span("loop.pack"):
-            shuffle = self.uniforms.permutation(n)
-            parts = [self._call_rows(cb, n)[shuffle].reshape(-1)
-                     .to(torch.int64), cb.ctr[_CTR_STATS:]]
-            if self.plan == "adaptive":
-                parts.append(self._state.ema.reshape(-1).to(torch.int64))
-            fetch = torch.cat(parts)
-        return _PendingSample(self, n, fetch, total, rounds, bool(fail))
+        self._reset(cb, n)
+        call = _PendingSample(self, n, cb)
+        if device_loop:
+            self._chunk(call, self.chunk_rounds or max(cb.last_rounds, 1))
+        self._inflight = call
+        return call
+
+    def _finish(self, call: _PendingSample) -> None:
+        """Run ``call``'s loop to its end, pack its rows and counters and
+        start their copy to the host."""
+        self._inflight = None
+        cb, n = call.cb, call._n
+        with obs.span("loop.finish"):
+            if self.fused_rounds == "device":
+                self._loop_device(call)
+            else:
+                self._loop_host(call)
+            cb.last_rounds = call.rounds
+            # the call's rows, shuffled, and its counters (the adaptive EMAs
+            # too) leave the static buffers in one tensor: the one fetch
+            with obs.span("loop.pack"):
+                shuffle = self.uniforms.permutation(n)
+                parts = [self._call_rows(cb, n)[shuffle].reshape(-1)
+                         .to(torch.int64), cb.ctr[_CTR_STATS:]]
+                if self.plan == "adaptive":
+                    parts.append(self._state.ema.reshape(-1).to(torch.int64))
+                fetch = torch.cat(parts)
+            call.start_copy(fetch)
 
     def _graphs(self) -> bool:
         """Whether the device loop replays a captured CUDA graph (on the
         card) or runs its step eagerly (on the CPU)."""
         return self.device.type == "cuda"
+
+    def _reset(self, cb: _CallBuffers, n: int) -> None:
+        """Zero the class's counters and set the call's target ``n``."""
+        cb.ctr.zero_()
+        cb.n.fill_(n)
 
     def _call_rows(self, cb: _CallBuffers, n: int) -> torch.Tensor:
         """The call's ``n`` rows in emission order."""
@@ -1398,58 +1490,65 @@ class TorchUnionSampler:
         self.uniforms.rewind(mark, rounds, self._slot_width,
                              self._round_shapes())
 
-    def _sync(self, cb: _CallBuffers) -> Tuple[int, int, int]:
+    def _sync(self, call: _PendingSample) -> Tuple[int, int, int]:
         """The loop's one host sync: ``(total, rounds, fail)``."""
         with obs.span("loop.chunk_sync"):
-            total, rounds, fail = cb.ctr[_CTR_TOTAL:_CTR_STATS].tolist()
-        self.last_chunks += 1
-        self.last_host_syncs += 1
+            total, rounds, fail = call.cb.ctr[_CTR_TOTAL:_CTR_STATS].tolist()
+        call.chunks += 1
+        call.host_syncs += 1
         self.host_syncs += 1
+        call.total, call.fail = total, fail
         return total, rounds, fail
 
     def _done(self, n: int, total: int, rounds: int, fail: int) -> bool:
         return bool(fail) or total >= n or rounds >= self.max_rounds
 
-    def _loop_host(self, cb: _CallBuffers, n: int):
+    def _loop_host(self, call: _PendingSample) -> None:
         """``fused_rounds="host"``: one round, then one sync, until done."""
         while True:
-            self._round_step(cb)
-            total, rounds, fail = self._sync(cb)
-            if self._done(n, total, rounds, fail):
-                return total, rounds, fail
+            self._round_step(call.cb)
+            total, call.rounds, fail = self._sync(call)
+            if self._done(call._n, total, call.rounds, fail):
+                return
 
-    def _loop_device(self, cb: _CallBuffers, n: int):
-        """``fused_rounds="device"``: chunks of ``K`` rounds (graph replays
-        on the card), one sync per chunk; the uniforms that the gated
-        rounds of the last chunk drew are rewound.  While the spans are on,
-        two CUDA events on the card bound each chunk's replays; their
+    def _chunk(self, call: _PendingSample, K: int) -> None:
+        """Enqueue ``K`` rounds of ``call`` (at most the rounds it has
+        left), after marking the uniform stream for the rewind.  While the
+        spans are on, two CUDA events on the card bound the replays; their
         elapsed time, read after the chunk's sync, adds to
         ``graph_device_seconds``."""
-        K = self.chunk_rounds or max(cb.last_rounds, 1)
-        done = 0
+        cb = call.cb
+        call.chunk_k = K = max(1, min(K, self.max_rounds - call.rounds))
+        call.mark = self._mark_uniforms()
+        call.timed = (cb.events is not None
+                      and obs.trace_annotations_enabled())
+        if call.timed:
+            cb.events[0].record()
+        self._replay(cb, K)
+        if call.timed:
+            cb.events[1].record()
+
+    def _loop_device(self, call: _PendingSample) -> None:
+        """``fused_rounds="device"``: the chunks of rounds from the one in
+        flight on, one sync per chunk; the uniforms that the gated rounds
+        of the last chunk drew are rewound.  A further chunk is sized by
+        the rows still owed at the call's yield per round."""
+        cb, n = call.cb, call._n
         while True:
-            K = max(1, min(K, self.max_rounds - done))
-            mark = self._mark_uniforms()
-            ev = cb.events if obs.trace_annotations_enabled() else None
-            if ev is not None:
-                ev[0].record()
-            self._replay(cb, K)
-            if ev is not None:
-                ev[1].record()
-            total, rounds, fail = self._sync(cb)
-            if ev is not None:          # both events are done at the sync
-                self.graph_device_seconds += ev[0].elapsed_time(ev[1]) / 1e3
-            ran = rounds - done
-            if ran < K:         # gated rounds only once the call is done
-                self._rewind_uniforms(mark, ran)
-                self.last_wasted_rounds += K - ran
-            done = rounds
+            total, rounds, fail = self._sync(call)
+            if call.timed:              # both events are done at the sync
+                self.graph_device_seconds += (
+                    cb.events[0].elapsed_time(cb.events[1]) / 1e3)
+            ran = rounds - call.rounds
+            if ran < call.chunk_k:      # gated rounds only once it is done
+                self._rewind_uniforms(call.mark, ran)
+                call.wasted_rounds += call.chunk_k - ran
+            call.rounds = rounds
             if self._done(n, total, rounds, fail):
-                return total, rounds, fail
-            # the rows still owed at this call's yield per round (at most
-            # as many rounds as have run: a slow start doubles)
-            K = self.chunk_rounds or min(
-                max(1, -(-rounds * (n - total) // max(total, 1))), rounds)
+                return
+            # (at most as many rounds as have run: a slow start doubles)
+            self._chunk(call, self.chunk_rounds or min(
+                max(1, -(-rounds * (n - total) // max(total, 1))), rounds))
 
     def _replay(self, cb: _CallBuffers, K: int) -> None:
         """``K`` rounds: graph replays on the card (each adds the kernel
@@ -1558,6 +1657,9 @@ class TorchUnionSampler:
                 "drain": reg.histogram(
                     "repro_engine_drain_seconds",
                     "host wall-clock of result fetch + assembly"),
+                "overlapped": reg.counter(
+                    "repro_engine_overlapped_drains_total",
+                    "drains run while a later call's rounds were in flight"),
             }
         return self._obs_metrics
 

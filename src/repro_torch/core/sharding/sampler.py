@@ -364,10 +364,15 @@ class ShardedUnionSampler(TorchUnionSampler):
         # is untried); the step runs eagerly in chunks
         return super()._graphs() and self.world == 1
 
-    def _loop_device(self, cb: _CallBuffers, n: int):
-        if self.world > 1:
+    def _defers_finish(self) -> bool:
+        # world > 1: the step runs eagerly and the pack all-reduces, so the
+        # call is finished inside sample_async
+        return super()._defers_finish() and self.world == 1
+
+    def _reset(self, cb: _CallBuffers, n: int) -> None:
+        super()._reset(cb, n)
+        if self.fused_rounds == "device" and self.world > 1:
             cb.out.zero_()          # the ranks' outputs merge by summation
-        return super()._loop_device(cb, n)
 
     def _call_rows(self, cb: _CallBuffers, n: int) -> torch.Tensor:
         if self.fused_rounds == "host" or self.world == 1:

@@ -477,8 +477,9 @@ class SetUnionSampler:
         return self._sample_sequential(n)
 
     def sample_async(self, n: int):
-        """Run ``sample(n)``'s rounds; ``result()`` on the returned handle
-        does the device→host fetch (host loops return a resolved handle)."""
+        """Launch ``sample(n)``'s rounds; ``result()`` on the returned
+        handle finishes them and does the device→host fetch (host loops
+        return a resolved handle)."""
         if self.engine is not None:
             return self.engine.sample_async(n)
         return ReadySample(self.sample(n))

@@ -29,9 +29,10 @@ source for serving traffic:
 
 Port copy of ``repro.serve.service``; ``python -m repro_torch.launch.serve
 --mode samples`` routes through this class.  The torch engine pins its own
-device and CUDA stream inside ``sample_async`` and finishes a call's round
-loop there (its device loop syncs once per chunk of rounds), so the
-producer's dispatch-then-drain keeps the host loop's carry order.  With
+device and CUDA stream inside ``sample_async`` and ``result``; its device
+loop finishes call *k* (chunk syncs, rewind, pack) before it launches call
+*k+1*, so the producer's dispatch-then-drain keeps the sequential calls'
+carry order while the drain of *k* overlaps *k+1*'s rounds.  With
 ``REPRO_OBS_TRACE=1`` the request path (``serve.request``,
 ``serve.lock_wait``, ``serve.queue_wait``, ``serve.assemble``) and the
 producer's wait on a full queue (``serve.put_wait``) are host spans of
@@ -124,15 +125,14 @@ class SampleService:
 
         Engines exposing ``sample_async`` get double-buffered round
         dispatch: batch *k+1* is dispatched before batch *k* is drained.
-        With the torch engine that does not overlap host and device work:
-        ``sample_async`` returns only after its chunk sync, when the card
-        has run every round of *k+1*, so the drain of *k* (fetch,
-        fingerprint, counter fold) runs on the host while the card has
-        nothing but *k+1*'s pack queued.  The spans (``loop.chunk_sync``
-        against ``loop.result``) show the two in turn: on an H100, an
-        8,192-row UQ1 call at SF 1 waits ~12 ms on the card and spends
-        ~8 ms in its drain and ~1.5 ms launching and packing.  Plain engines
-        fall back to the synchronous path.
+        With the torch engine's device loop that overlaps host and device
+        work: dispatching *k+1* finishes *k* (its chunk sync, pack and the
+        start of its copy to the host) and returns with *k+1*'s first
+        chunk queued on the card, so the drain of *k* (the wait on its
+        copy, the fingerprints and the counter fold) runs on the host
+        while the card runs *k+1*.  The engine counts such drains in
+        ``overlapped_drains``.  Plain engines fall back to the synchronous
+        path.
         """
         dispatch = getattr(sampler, "sample_async", None)
         pending = None

@@ -16,7 +16,11 @@ uniforms that gated rounds drew:
 * a tiny ring bank (head wrap, push clipping) agrees between the modes;
 * ``max_rounds`` exhaustion raises the reference's error in both modes and
   leaves the same carry;
-* ``balance="full"`` and ``balance_slack`` give the reference's widths.
+* ``balance="full"`` and ``balance_slack`` give the reference's widths;
+* calls launched before the previous one is drained (``sample_async``),
+  and the serve tier's producer over the device loop, give the samples,
+  counters and carry of the same calls made one after the other, and count
+  the drains that ran while a later call was in flight.
 """
 
 import numpy as np
@@ -34,7 +38,9 @@ from repro.data.workloads import uq1
 
 from repro_torch.core.backends.torch_backend import (TorchBackend,
                                                      TorchUnionSampler)
+from repro_torch import obs
 from repro_torch.core.union_sampler import SetUnionSampler
+from repro_torch.serve.service import SampleService
 
 STAT_FIELDS = ("iterations", "candidate_draws", "cover_rejects",
                "residual_rejects", "pred_rejects", "dropped_slots",
@@ -209,3 +215,101 @@ def test_fused_rounds_validation_and_record_mode():
                           membership="record", fused_rounds="device")
     assert len(rec.sample(400)) == 400
     assert rec.engine.last_host_syncs == rec.engine.last_rounds + 1
+
+
+def _last_counts(eng):
+    return (eng.last_rounds, eng.last_chunks, eng.last_host_syncs,
+            eng.last_wasted_rounds)
+
+
+@pytest.mark.parametrize("plan", ["static", "adaptive"])
+@pytest.mark.parametrize("chunk", [None, 16], ids=["auto-K", "forced-K16"])
+def test_pipelined_calls_equal_sequential_calls(chunk, plan):
+    """Call k+1 launched before call k is drained, and a plain ``sample``
+    while a call is in flight, give the rows, counters and carry of the
+    same calls made one after the other; each drain leaves its own call's
+    ``last_*`` counts on the engine."""
+    (cat, specs, cover), _, _ = _small_uq1()
+
+    def make():
+        s = SetUnionSampler(cat, specs, cover, seed=11, device="cpu",
+                            round_batch=512, plan=plan)
+        s.engine.chunk_rounds = chunk
+        return s
+
+    pipe, seq = make(), make()
+    pe, se = pipe.engine, seq.engine
+    # 700, 333, 900 and 400 fall in the 1024 class, the others in 2048
+    sizes = (700, 1500, 333, 2048, 900, 1200, 400)
+    want, counts = [], []
+    for n in sizes:
+        want.append(seq.sample(n))
+        counts.append(_last_counts(se))
+    got = {}
+
+    def drain(i, handle):
+        got[i] = handle.result()
+        assert _last_counts(pe) == counts[i], i
+        assert pe.last_host_syncs == pe.last_chunks + 1
+
+    h0 = pipe.sample_async(sizes[0])
+    h1 = pipe.sample_async(sizes[1])    # finishes call 0, launches call 1
+    drain(0, h0)                        # call 1 in flight: overlapped
+    drain(1, h1)                        # finishes itself
+    h2 = pipe.sample_async(sizes[2])
+    got[3] = pipe.sample(sizes[3])      # finishes call 2 first
+    assert _last_counts(pe) == counts[3]
+    drain(2, h2)
+    pending = pipe.sample_async(sizes[4])   # the serve tier's order
+    for i in (5, 6):
+        nxt = pipe.sample_async(sizes[i])
+        drain(i - 1, pending)           # overlapped
+        pending = nxt
+    drain(6, pending)
+    for i in range(len(sizes)):
+        _assert_same_samples(got[i], want[i])
+    assert pipe.stats.as_dict() == seq.stats.as_dict()
+    assert np.array_equal(pe.piece_stats, se.piece_stats)
+    _assert_same_carry(pe, se)
+    for f in ("host_syncs", "total_rounds", "wasted_rounds"):
+        assert getattr(pe, f) == getattr(se, f), f
+    assert (pe.overlapped_drains, se.overlapped_drains) == (3, 0)
+    if chunk is not None:
+        assert pe.wasted_rounds > 0       # the rewind ran between calls
+
+
+def test_service_drains_while_the_next_call_runs():
+    """``SampleService`` over the device loop drains call k while call
+    k+1 is launched, counts those drains in the engine and the registry,
+    and serves the rows of the same seed's sequential calls."""
+    (cat, specs, cover), _, _ = _small_uq1()
+
+    def make():
+        return SetUnionSampler(cat, specs, cover, seed=5, device="cpu",
+                               round_batch=512)
+
+    served, seq = make(), make()
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    obs.set_enabled(True)
+    try:
+        with SampleService(served, batch=2048, prefetch=2) as svc:
+            got = [svc.request(n) for n in (1500, 1000, 1596)]
+            producer = svc._threads[0]
+    finally:
+        obs.set_enabled(None)
+        obs.set_registry(prev)
+    assert not producer.is_alive()        # stop() joined it
+    eng = served.engine
+    assert eng.overlapped_drains > 0
+    snap = reg.snapshot()["repro_engine_overlapped_drains_total"]["series"]
+    assert snap[()] == eng.overlapped_drains
+    want = [seq.sample(2048) for _ in range(2)]
+    for a in seq.attrs:
+        np.testing.assert_array_equal(
+            np.concatenate([g.rows[a] for g in got]),
+            np.concatenate([w.rows[a] for w in want]))
+    for f in ("home", "fingerprint"):
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(g, f) for g in got]),
+            np.concatenate([getattr(w, f) for w in want]))

@@ -315,6 +315,51 @@ def test_device_loop_capture_equals_host_loop_on_card(plan, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["static", "adaptive"])
+def test_pipelined_calls_on_card_equal_sequential_calls(plan):
+    """Each call launched (its first chunk of graph replays queued) before
+    the one before it is drained, as the serve tier does: the rows, stats,
+    carry and Philox offset of the same calls made one after the other,
+    every drain overlapped, and no served column aliasing the pinned copy
+    that a later call reuses (all compared after the last call)."""
+    _need_card()
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.data.workloads import uq1
+    wl = uq1(scale=1.0, seed=0)
+    cover = estimate_union(warmup(wl.cat, wl.joins,
+                                  method="histogram").oracle).cover
+    pipe, seq = [SetUnionSampler(wl.cat, wl.joins, cover, seed=11,
+                                 device="cuda", round_batch=1024, plan=plan)
+                 for _ in range(2)]
+    sizes = (700, 1500, 333, 2048, 900, 2048)
+    want = [seq.sample(n) for n in sizes]
+    got = []
+    pending = pipe.sample_async(sizes[0])
+    for n in sizes[1:]:
+        nxt = pipe.sample_async(n)
+        got.append(pending.result())
+        pending = nxt
+    got.append(pending.result())
+    for a, b in zip(got, want):
+        for attr in a.attrs:
+            assert (a.rows[attr] == b.rows[attr]).all()
+        assert (a.home == b.home).all()
+        assert (a.fingerprint == b.fingerprint).all()
+    pe, se = pipe.engine, seq.engine
+    assert pipe.stats.as_dict() == seq.stats.as_dict()
+    assert (pe.piece_stats == se.piece_stats).all()
+    for f in ("owed", "dead", "streak", "head", "count"):
+        assert torch.equal(getattr(pe._state, f), getattr(se._state, f)), f
+    assert torch.equal(pe._state.bank[:, :-1], se._state.bank[:, :-1])
+    assert (pe.uniforms.generator.get_offset()
+            == se.uniforms.generator.get_offset())
+    assert (pe.host_syncs, pe.total_rounds) == (se.host_syncs,
+                                                se.total_rounds)
+    assert pe.overlapped_drains == len(sizes) - 1
+
+
+@pytest.mark.cuda
 def test_device_loop_capture_with_predicate_masks_on_card():
     """UQ2 rejection mode: the in-round predicate masks (sorted-set
     lookups for ``in``) are captured too."""

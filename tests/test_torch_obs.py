@@ -655,14 +655,19 @@ def test_round_loop_spans_nest(spans_on):
         s.sample(n)
     d = _span_delta(before)
     loop = {k for k in d if k.startswith("loop.")}
-    assert loop == {"loop.dispatch", "loop.replay", "loop.chunk_sync",
-                    "loop.pack", "loop.result", "loop.fetch", "loop.fold",
-                    "loop.fingerprint"}
+    assert loop == {"loop.dispatch", "loop.replay", "loop.finish",
+                    "loop.chunk_sync", "loop.pack", "loop.result",
+                    "loop.fetch", "loop.fold", "loop.fingerprint"}
     assert d["loop.dispatch"]["n"] == d["loop.result"]["n"] == 2
+    assert d["loop.finish"]["n"] == 2
     assert d["loop.chunk_sync"]["n"] == d["loop.replay"]["n"] >= 2
-    assert d["loop.dispatch"]["s"] >= sum(
+    # sample() launches in sample_async and finishes inside result()
+    assert d["loop.dispatch"]["s"] + d["loop.finish"]["s"] >= sum(
         d[k]["s"] for k in ("loop.replay", "loop.chunk_sync", "loop.pack"))
+    assert d["loop.finish"]["s"] >= sum(
+        d[k]["s"] for k in ("loop.chunk_sync", "loop.pack"))
     assert d["loop.result"]["s"] >= sum(
-        d[k]["s"] for k in ("loop.fetch", "loop.fold", "loop.fingerprint"))
+        d[k]["s"] for k in ("loop.finish", "loop.fetch", "loop.fold",
+                            "loop.fingerprint"))
     # the CUDA-event counter reads only on the card
     assert s.engine.graph_device_seconds == 0.0
