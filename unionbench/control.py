@@ -9,7 +9,11 @@ place (it has to pass).
 For each seed it builds the cell's inputs, draws as many requests as a
 run checks (``check_requests`` sizes from the mix's grid, drawn from the
 seed), samples them with the reference and prints one JSON line of the
-numbers the cell compares.  Runs on the host; no card needed.
+numbers the cell compares.  Runs on the host; no card needed.  Besides
+what the judge reads, the reference that the configuration names gives
+``sample(n, rng)`` (Algorithm 1: base ids and home pieces) and
+``rows_of(ids)`` (the served rows of those ids), and takes
+``precision="bf16"``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ def readings(bench: dict, cell: str, seed: int, precision: str,
 
     from unionbench import harness, inputs
     from unionbench.sizes import grid
-    from unionbench.reference.chain_union import ChainUnion
     from unionbench.reference.judge import judge
 
     pkg = pkg or harness.PKG
@@ -39,8 +42,9 @@ def readings(bench: dict, cell: str, seed: int, precision: str,
     limits = harness.load_json(pkg / "checks" / f"{cell}.json")
     t0 = time.perf_counter()
     union = inputs.build(config, seed)
-    exact = ChainUnion(union)
-    place = exact if precision == "f64" else ChainUnion(union, precision)
+    reference = harness.reference_entry(config)
+    exact = reference(union)
+    place = exact if precision == "f64" else reference(union, precision)
     rng = np.random.default_rng([seed, 0xC0])
     asked = rng.choice(grid(traffic), traffic.get("check_requests", 1))
     t1 = time.perf_counter()

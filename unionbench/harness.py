@@ -5,7 +5,10 @@ Everything that belongs to one configuration, traffic mix, metric or
 cell's limits sits in a file of its own, found by the name that
 ``BENCHMARK.json`` gives:
 
-* ``unionbench/configs/<config>.json`` — the deployment;
+* ``unionbench/configs/<config>.json`` — the deployment: its ``workload``
+  names the builder ``unionbench/inputs/<workload>.py`` and its
+  ``reference`` the module ``unionbench/reference/<reference>.py`` whose
+  ``reference(union, precision)`` the comparison reads;
 * ``unionbench/traffic/<mix>.json`` — the mix; its ``driver`` names
   ``unionbench/drivers/<driver>.py``;
 * ``unionbench/metrics/<metric>.py`` — one reader per metric, with a
@@ -185,6 +188,13 @@ def driver_module(kind: str, pkg: pathlib.Path = PKG):
                    "unionbench_driver_" + _ident(kind))
 
 
+def reference_entry(config: dict):
+    """The entry ``reference(union, precision="f64")`` of the module under
+    ``unionbench/reference/`` that the configuration names."""
+    return importlib.import_module(
+        f"unionbench.reference.{config['reference']}").reference
+
+
 def applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -206,6 +216,7 @@ def execute(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
     traffic = load_json(pkg / "traffic" / f"{entry['traffic']}.json")
     limits = load_json(pkg / "checks" / f"{cell}.json")
     driver = driver_module(traffic["driver"], pkg)
+    reference = reference_entry(config)
     run = Run(cell, config, traffic, int(seed), float(seconds), bool(trace),
               device, label=profiling.label(trace))
     cuda = getattr(device, "type", str(device)) == "cuda"
@@ -280,10 +291,8 @@ def execute(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     # --- the comparison with the reference (after the program is freed)
-    ref_mod = importlib.import_module(
-        f"unionbench.reference.{config['reference']}")
     from unionbench.reference import judge
-    ref = ref_mod.ChainUnion(run.union)
+    ref = reference(run.union)
     recs = run.window.records
     t_judge = time.perf_counter()
     numbers, info = judge.judge(ref, [r.asked for r in recs],

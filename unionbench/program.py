@@ -1,8 +1,9 @@
 """The program under test (``repro_torch``), built from the benchmark's
 inputs through its public constructors: ``Relation``, ``Catalog``,
-``chain_join``, ``Pred`` and ``pushdown``, then the warm-up, the cover and
-the sampler that the configuration names.  Nothing here reads the
-program's state back except counters and kernel names."""
+``chain_join``, ``JoinSpec``/``JoinNode``, ``Pred`` and ``pushdown``, then
+the warm-up, the cover and the sampler that the configuration names.
+Nothing here reads the program's state back except counters and kernel
+names."""
 
 from __future__ import annotations
 
@@ -21,36 +22,48 @@ def load_kernels(run) -> None:
 
 
 def specs(union):
-    """(catalog, join specs in cover order) of the union.  Joins without
-    variant masks share the base ``Relation`` objects (and so the
+    """(catalog, join specs in cover order) of the union.  A chain is built
+    with ``chain_join``, any other join (a branching tree, residual nodes)
+    with ``JoinSpec`` over ``JoinNode``s.  Joins over the same relations
+    with the same nodes share their unfiltered spec, and relations a join
+    keeps whole are the base ``Relation`` objects (and so share the
     program's per-relation device tensors), as its own UQ2 builder does."""
     from repro_torch.core.index import Catalog
-    from repro_torch.core.joins import chain_join
     from repro_torch.core.predicates import Pred, pushdown
     from repro_torch.core.relation import Relation
 
     base = {name: Relation(name, dict(cols))
             for name, cols in union.relations.items()}
-    edges = [node.edge for node in union.chain[1:]]
-    shared: Dict[Tuple[int, ...], object] = {}
+    shared: Dict[Tuple, object] = {}
     out = []
-    for j in union.joins:
+    for k, j in enumerate(union.joins):
+        nodes = union.nodes(k)
         rels = []
-        for node in union.chain:
+        for node in nodes:
             m = j.masks.get(node.relation)
             rel = base[node.relation]
             rels.append(rel if m is None
                         else rel.filter(m, name=f"{node.relation}@{j.name}"))
+        chain = union.is_chain(k)
         if not j.preds:
-            out.append(chain_join(j.name, rels, edges))
+            out.append(_join_spec(j.name, nodes, rels, chain))
             continue
-        ident = tuple(id(r) for r in rels)
+        ident = tuple((id(r), n.parent, n.edge, n.kind)
+                      for r, n in zip(rels, nodes))
         if ident not in shared:
-            shared[ident] = chain_join(f"{j.name}#base", rels, edges)
+            shared[ident] = _join_spec(f"{j.name}#base", nodes, rels, chain)
         out.append(pushdown(shared[ident],
                             [Pred(a, op, set(v) if op == "in" else v)
                              for a, op, v in j.preds], name=j.name))
     return Catalog(), out
+
+
+def _join_spec(name: str, nodes, rels, chain: bool):
+    from repro_torch.core.joins import JoinNode, JoinSpec, chain_join
+    if chain:
+        return chain_join(name, rels, [n.edge for n in nodes[1:]])
+    return JoinSpec(name, [JoinNode(n.relation, r, n.parent, n.edge, n.kind)
+                           for n, r in zip(nodes, rels)])
 
 
 def cover(config, cat, joins, seed: int, device):

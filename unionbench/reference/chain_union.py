@@ -1,12 +1,13 @@
 """Plain numpy reference for a union of chain joins over shared base rows.
 
 Every join of a :class:`unionbench.inputs.Union` follows one chain of base
-relations and keeps a subset of each relation's rows (its variant mask,
-AND its pushdown predicates evaluated here on the relation's own columns).
-Every relation holds its primary key, so an output tuple fixes its base
-rows: a tuple lies in a join iff each of its base rows is kept by that
-join, and the intersection of several joins is the chain over the AND of
-their masks.  From that alone this module works out
+relations (the same relations and edges for every join) and keeps a
+subset of each relation's rows (its variant mask, AND its pushdown
+predicates evaluated here on the relation's own columns).  Every relation
+holds its primary key, so an output tuple fixes its base rows: a tuple
+lies in a join iff each of its base rows is kept by that join, and the
+intersection of several joins is the chain over the AND of their masks.
+From that alone this module works out
 
 * the exact size of every join and intersection, and so of every cover
   piece ``J'_k = J_k \\ (J_0 ∪ … ∪ J_{k-1})`` (inclusion-exclusion);
@@ -14,10 +15,13 @@ their masks.  From that alone this module works out
   exact marginal law of a uniform sample of the piece);
 * for served rows, the base row of each node (by primary key, every
   column compared) and so membership in every join;
-* uniform samples of the union by Algorithm 1 (:meth:`sample`), which the
-  control runs with every weight it computes rounded to bfloat16.
+* uniform samples of the union by Algorithm 1 (:meth:`ChainUnion.sample`),
+  which the control runs with every weight it computes rounded to
+  bfloat16.
 
-It imports nothing of the program and nothing but numpy.
+:func:`reference` is the module's entry (the interface the judge reads is
+:class:`unionbench.reference.judge.Reference`).  It imports nothing of the
+program and nothing but numpy.
 """
 
 from __future__ import annotations
@@ -52,6 +56,40 @@ def _pack(cols: Sequence[np.ndarray], radices: Sequence[int]) -> np.ndarray:
     return out
 
 
+def reference(union, precision: str = "f64") -> "ChainUnion":
+    """The reference of ``union``, whose joins must be chains over the same
+    relations and edges; ``precision="bf16"`` is the control."""
+    shape = _shape_error(union)
+    if shape:
+        raise ValueError(f"chain_union judges unions of chain joins over one "
+                         f"chain; {shape}")
+    return ChainUnion(union, precision)
+
+
+def _shape_error(union) -> str:
+    """What keeps ``union`` from being one shared chain ('' if nothing)."""
+    first = [(n.relation, n.edge) for n in union.nodes(0)]
+    for k, j in enumerate(union.joins):
+        nodes = union.nodes(k)
+        kids: Dict[str, int] = {}
+        for n in nodes:
+            if n.kind == "residual":
+                return (f"join {j.name!r} is cyclic: node {n.relation!r} is a "
+                        f"residual on {n.edge}")
+            kids[n.parent] = kids.get(n.parent, 0) + 1
+        wide = [p for p, c in kids.items() if p is not None and c > 1]
+        if wide:
+            return (f"join {j.name!r} is a branching tree: node {wide[0]!r} "
+                    f"has {kids[wide[0]]} children")
+        if not union.is_chain(k):
+            return (f"join {j.name!r} is a chain out of node order: its "
+                    f"parents are {[n.parent for n in nodes]}")
+        if [(n.relation, n.edge) for n in nodes] != first:
+            return (f"join {j.name!r} follows another chain than "
+                    f"{union.joins[0].name!r}: {[n.relation for n in nodes]}")
+    return ""
+
+
 class ChainUnion:
     """Exact sizes, marginals and membership of a union of chain joins.
 
@@ -63,14 +101,15 @@ class ChainUnion:
             raise ValueError(f"precision {precision!r}")
         self.union = union
         self.rnd = bf16 if precision == "bf16" else _exact
-        self.rels = [node.relation for node in union.chain]
+        chain = union.nodes(0)
+        self.rels = [node.relation for node in chain]
         self.cols = [union.relations[r] for r in self.rels]
         self.nrows = [len(next(iter(c.values()))) for c in self.cols]
         # per edge i (node i -> node i+1): dense key ids of both sides
         self.parent_kid: List[np.ndarray] = []
         self.child_kid: List[np.ndarray] = []
         self.nkeys: List[int] = []
-        for i, node in enumerate(union.chain[1:]):
+        for i, node in enumerate(chain[1:]):
             a, b = self.cols[i], self.cols[i + 1]
             pa = [a[x] for x in node.edge]
             ch = [b[x] for x in node.edge]
@@ -100,6 +139,28 @@ class ChainUnion:
         self._pieces: Optional[Tuple[np.ndarray, List[List[np.ndarray]]]] = None
         self._sorted: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._locate: Dict[int, Tuple[np.ndarray, np.ndarray, List[int]]] = {}
+        self._located: Tuple = (None, None)
+
+    # ------------------------------------------------- the judge's interface
+    def nodes(self, k: int) -> List[str]:
+        return self.rels
+
+    def node_rows(self, k: int) -> List[int]:
+        return self.nrows
+
+    def locate(self, rows: Dict[str, np.ndarray], k: int) -> np.ndarray:
+        """(n, nodes) base row of each node for each served row, -1 where
+        the relation holds no row equal to the row's projection (every
+        join has the same nodes).  The last mapping located is kept, so
+        that :meth:`member` on it (not changed since) locates nothing
+        again."""
+        if self._located[0] is not rows:
+            self._located = (rows, self._locate_rows(rows))
+        return self._located[1]
+
+    def member(self, rows: Dict[str, np.ndarray], q: int) -> np.ndarray:
+        """Whether each served row is a tuple of join ``q``."""
+        return self.member_ids(self.locate(rows, q), q)
 
     # ----------------------------------------------------------- counting
     def _and_masks(self, members: Sequence[int]) -> List[np.ndarray]:
@@ -180,9 +241,7 @@ class ChainUnion:
             self._locate[p] = (key[order], order, radices)
         return self._locate[p]
 
-    def locate(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
-        """(n, nodes) base row of each node for each served row, -1 where
-        the relation holds no row equal to the row's projection."""
+    def _locate_rows(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
         n = len(next(iter(rows.values())))
         ids = np.full((n, len(self.rels)), -1, dtype=np.int64)
         for p, rel in enumerate(self.rels):
@@ -202,7 +261,7 @@ class ChainUnion:
             ids[:, p] = np.where(hit, row, -1)
         return ids
 
-    def member(self, ids: np.ndarray, j: int) -> np.ndarray:
+    def member_ids(self, ids: np.ndarray, j: int) -> np.ndarray:
         """Whether each located row is a tuple of join ``j``."""
         ok = (ids >= 0).all(axis=1)
         safe = np.where(ids >= 0, ids, 0)
@@ -312,7 +371,7 @@ class ChainUnion:
                 need = want.size - got
                 cand, ok = self._draw(k, *state[k], max(need, 64), rng)
                 for q in range(k):
-                    ok &= ~self.member(cand, q)
+                    ok &= ~self.member_ids(cand, q)
                 cand = cand[ok][:need]
                 idle = 0 if cand.shape[0] else idle + 1
                 ids[want[got:got + cand.shape[0]]] = cand

@@ -1,5 +1,7 @@
 """The comparison that decides ``correct``: served rows against the plain
-reference (:class:`unionbench.reference.chain_union.ChainUnion`).
+reference that the configuration names (any object with the
+:class:`Reference` interface, such as
+:class:`unionbench.reference.chain_union.ChainUnion`).
 
 It judges what the timed path handed to clients and works out everything
 it compares with from the inputs alone:
@@ -13,14 +15,16 @@ it compares with from the inputs alone:
   lie in a join earlier in the cover (the membership layer);
 * ``home_z`` — the largest binomial z of a piece's share of the checked
   rows against the exact law ``|J'_k| / Σ|J'|``;
-* ``law_z`` — within each piece, the rows' base row at each node against
+* ``law_z`` — within each piece, the rows' base row at each node of its
+  join against
   the exact marginal law of a uniform sample of the piece: a Pearson
   chi-square over cells that pool rows by a fixed hash until a cell
   expects about ``CELL`` rows, as ``(X² - df) / sqrt(2 df)``; the largest
   over pieces and nodes;
-* ``union_law_z`` — the same per node over (piece, cell) pairs against
-  the exact law of a uniform sample of the whole union, piece shares
-  included (the cover and selection law where the cover is exact);
+* ``union_law_z`` — the same per node name over (piece, cell) pairs, the
+  pieces whose joins hold that node, against the exact law of a uniform
+  sample of the whole union, piece shares included (the cover and
+  selection law where the cover is exact);
 * ``dup_z`` — repeated tuples within a piece against what i.i.d. uniform
   draws repeat (``C(n_k, 2) / |J'_k|`` pairs, Poisson variance):
   ``(observed - expected) / sqrt(variance)`` (independence).
@@ -28,13 +32,37 @@ it compares with from the inputs alone:
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Protocol, Sequence, Tuple
 
 import numpy as np
 
-from .chain_union import ChainUnion
-
 CELL = 20            # expected rows per pooled cell of law_z
+
+Rows = Dict[str, np.ndarray]
+
+
+class Reference(Protocol):
+    """What the judge reads of a reference.  Join ``k`` is the ``k``-th in
+    cover order; a node is named by its relation, and a name means the
+    same relation (the same rows) in every join that holds it."""
+
+    def nodes(self, k: int) -> Sequence[str]:
+        """Join ``k``'s node names."""
+
+    def node_rows(self, k: int) -> Sequence[int]:
+        """The row count of each of join ``k``'s nodes."""
+
+    def locate(self, rows: Rows, k: int) -> np.ndarray:
+        """(n, len(nodes(k))) base row of each of join ``k``'s nodes for
+        each served row (by primary key, every column compared), -1 where
+        the relation holds no row equal to the row's projection."""
+
+    def member(self, rows: Rows, q: int) -> np.ndarray:
+        """Whether each served row is a tuple of join ``q``."""
+
+    def pieces(self) -> Tuple[np.ndarray, List[List[np.ndarray]]]:
+        """Exact piece sizes ``|J'_k|`` in cover order, and per piece and
+        node of its own join the piece's tuples through each row."""
 
 
 def _cells(nz: np.ndarray, count: int) -> np.ndarray:
@@ -70,8 +98,8 @@ def _z(o: np.ndarray, e: np.ndarray) -> float:
     return (x2 - df) / np.sqrt(2.0 * df)
 
 
-def judge(ref: ChainUnion, asked: Sequence[int], got: Sequence[int],
-          rows: Dict[str, np.ndarray], home: np.ndarray,
+def judge(ref: Reference, asked: Sequence[int], got: Sequence[int],
+          rows: Rows, home: np.ndarray,
           names: Sequence[str]) -> Tuple[Dict[str, float], Dict[str, object]]:
     """The numbers in ``names`` for one run, and details for the log.
 
@@ -80,25 +108,27 @@ def judge(ref: ChainUnion, asked: Sequence[int], got: Sequence[int],
     asked = np.asarray(asked, np.int64)
     got = np.asarray(got, np.int64)
     home = np.asarray(home, np.int64)
-    nj = len(ref.masks)
+    sizes, marg = ref.pieces()
+    nj = len(sizes)
     out: Dict[str, float] = {}
     info: Dict[str, object] = {"checked_rows": int(home.size)}
     out["request_size_errors"] = int((asked != got).sum())
-    ids = ref.locate(rows)
     known = (home >= 0) & (home < nj)
     in_home = np.zeros(home.size, bool)
     earlier = np.zeros(home.size, bool)
+    located: List[Tuple[np.ndarray, np.ndarray]] = []   # per home piece
     for k in range(nj):
         sel = np.flatnonzero(known & (home == k))
+        sub = {a: c[sel] for a, c in rows.items()}
+        located.append((sel, ref.locate(sub, k)))
         if sel.size == 0:
             continue
-        in_home[sel] = ref.member(ids[sel], k)
+        in_home[sel] = ref.member(sub, k)
         for q in range(k):
-            earlier[sel] |= ref.member(ids[sel], q)
+            earlier[sel] |= ref.member(sub, q)
     out["rows_not_in_home"] = int((~in_home).sum())
     out["rows_in_earlier_piece"] = int((in_home & earlier).sum())
     valid = in_home & ~earlier
-    sizes, marg = ref.pieces()
     p = sizes / sizes.sum()
     n = int(home.size)
     counts = np.bincount(home[known], minlength=nj)[:nj].astype(np.float64)
@@ -112,24 +142,28 @@ def judge(ref: ChainUnion, asked: Sequence[int], got: Sequence[int],
     info["home_share_gap"] = float(gap.max())
     law, where = 0.0, None
     nv = int(valid.sum())
-    joint = [([], []) for _ in ref.rels]
+    joint: Dict[str, Tuple[list, list]] = {}
+    for k in range(nj):
+        for name in ref.nodes(k):
+            joint.setdefault(name, ([], []))
     pairs_obs = pairs_exp = pairs_var = 0.0
     for k in range(nj):
-        sel = valid & (home == k)
-        nk = int(sel.sum())
+        sel, ids = located[k]
+        keep = valid[sel]
+        nk = int(keep.sum())
         if sizes[k] <= 0:
             continue
-        kid = ids[sel]
-        for node in range(len(ref.rels)):
-            obs = np.bincount(kid[:, node], minlength=ref.nrows[node])
+        kid = ids[keep]
+        for node, (name, nrows) in enumerate(zip(ref.nodes(k), ref.node_rows(k))):
+            obs = np.bincount(kid[:, node], minlength=nrows)
             q = marg[k][node] / sizes[k]
             if nk:
                 z = _z(*_pooled(obs, q, nk))
                 if where is None or z > law:
-                    law, where = z, (k, ref.rels[node])
+                    law, where = z, (k, name)
             o, e = _pooled(obs, q, nv * p[k])
-            joint[node][0].append(o)
-            joint[node][1].append(e)
+            joint[name][0].append(o)
+            joint[name][1].append(e)
         if nk == 0:
             continue
         _, rep = np.unique(kid, axis=0, return_counts=True)
@@ -139,9 +173,11 @@ def judge(ref: ChainUnion, asked: Sequence[int], got: Sequence[int],
         pairs_var += sizes[k] * (mu ** 3 + mu ** 2 / 2)
     out["law_z"] = float(law)
     info["law_z_at"] = where
-    zs = [_z(np.concatenate(o), np.concatenate(e)) for o, e in joint]
+    held = [name for name, (o, _) in joint.items() if o]
+    zs = [_z(np.concatenate(joint[x][0]), np.concatenate(joint[x][1]))
+          for x in held]
     out["union_law_z"] = float(max(zs))
-    info["union_law_z_at"] = ref.rels[int(np.argmax(zs))]
+    info["union_law_z_at"] = held[int(np.argmax(zs))]
     out["dup_z"] = ((pairs_obs - pairs_exp) / np.sqrt(pairs_var)
                     if pairs_var > 0 else 0.0)
     info["dup_pairs"] = [pairs_obs, round(pairs_exp, 3)]

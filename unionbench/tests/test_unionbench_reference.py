@@ -87,7 +87,7 @@ def test_planted_rows_are_caught():
         "request_size_errors": 0, "rows_not_in_home": 0,
         "rows_in_earlier_piece": 0})
     # rows of piece 0 that J1 holds too, credited to piece 1
-    both = np.flatnonzero((home == 0) & ref.member(ids, 1))[:5]
+    both = np.flatnonzero((home == 0) & ref.member(rows, 1))[:5]
     assert both.size == 5
     planted = home.copy()
     planted[both] = 1
