@@ -379,23 +379,26 @@ class TorchTreeJoin:
     def is_empty(self) -> bool:
         return self._empty
 
-    def draw(self, u: torch.Tensor, plain: bool = False
-             ) -> Tuple[Rows, torch.Tensor, torch.Tensor]:
+    def draw(self, u: torch.Tensor, plain: bool = False,
+             skeleton: bool = False) -> Tuple[torch.Tensor, ...]:
         """One batch of draws; ``u`` is ``(n_streams, batch)`` float32."""
         return self.draw_with_root(u, self.root_wprefix, self.root_cols,
-                                   self.n_root, plain=plain)
+                                   self.n_root, plain=plain, skeleton=skeleton)
 
     def draw_with_root(self, u: torch.Tensor, root_wprefix: torch.Tensor,
                        root_cols: Dict[str, torch.Tensor], n_root: int,
-                       plain: bool = False
-                       ) -> Tuple[Rows, torch.Tensor, torch.Tensor]:
+                       plain: bool = False, skeleton: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
         """Tree draw with a caller-supplied root slice.
 
         Returns ``(rows, accept, walk_ok)``: ``walk_ok`` marks walks whose
         every edge (tree and residual) had a match; ``accept`` additionally
         applies the residual ``Π d/M`` test, so ``walk_ok & ~accept`` are the
-        residual rejections.  ``plain=True`` swaps the CUDA kernels for their
-        plain PyTorch versions (the on-card comparison of the two)."""
+        residual rejections.  ``skeleton=True`` adds a fourth mask, the walks
+        whose every tree edge had a match, so ``skeleton & ~walk_ok`` are
+        the residual misses (d = 0).  ``plain=True`` swaps the CUDA kernels
+        for their plain PyTorch versions (the on-card comparison of the
+        two)."""
         if u.dim() != 2 or u.shape[0] != self.n_streams:
             raise ValueError(f"{self.name}: draw needs ({self.n_streams}, batch)"
                              f" uniforms, got {tuple(u.shape)}")
@@ -409,7 +412,10 @@ class TorchTreeJoin:
         r_idx = r_pos.long()
         rows = {a: c[r_idx] for a, c in root_cols.items()}
         acc_ratio = torch.ones(batch, dtype=torch.float32, device=dev)
+        skel = None
         for i, cfg in enumerate(self.node_cfgs):
+            if cfg.kind == "residual" and skel is None:
+                skel = ok               # residual nodes come after the tree's
             q = _pack(rows, cfg.edge_attrs, cfg.radices)
             if cfg.kind == "residual" or cfg.uniform:
                 pos, d = pick(self.sorted_keys[i], q, u[i + 1])
@@ -425,9 +431,9 @@ class TorchTreeJoin:
             child = self.perm[i][torch.clamp(pos, 0, n_i - 1).long()]
             for a, c in self.cols[i].items():
                 rows[a] = c[child]
-        if not self.has_residual:
-            return rows, ok, ok
-        return rows, ok & (u[-1] < acc_ratio), ok
+        out = ((rows, ok, ok) if not self.has_residual
+               else (rows, ok & (u[-1] < acc_ratio), ok))
+        return out + (ok if skel is None else skel,) if skeleton else out
 
 
 # ---------------------------------------------------------------------------
@@ -793,7 +799,8 @@ class PhiloxUniforms:
 
 # SamplerStats fields the engine accumulates as one device vector
 _STAT_FIELDS = ("iterations", "candidate_draws", "cover_rejects",
-                "residual_rejects", "pred_rejects", "dropped_slots")
+                "residual_rejects", "pred_rejects", "dropped_slots",
+                "residual_misses")
 
 # Per-piece round counters, one (nj, 5) device matrix per sample() call:
 # candidate draws, cover-accepted rows, §8.2 residual rejections, rows
@@ -1256,8 +1263,9 @@ class TorchUnionSampler:
 
         Returns per join the accepted-compacted ``(B_j, A+1)`` matrices plus
         the (walk_ok, residual, accepted, predicate-reject) counts, the
-        per-piece need = carry + this round's targets, and (adaptive plan,
-        else None) the per-piece candidate budget."""
+        per-piece need = carry + this round's targets, (adaptive plan, else
+        None) the per-piece candidate budget, and the round's residual
+        misses."""
         nj = len(self.trees)
         dev = self.device
         members = [self.backend.members[n] for n in self.order]
@@ -1275,17 +1283,20 @@ class TorchUnionSampler:
             budget = planner.budget_for(
                 need.to(torch.int32), bank_count.to(torch.int32), ema[:, 0],
                 self._pbatch_i32, self._drain_w, planner.TORCH_XP)
-        cols, okc, resc, accc, predc = [], [], [], [], []
+        cols, okc, resc, accc, predc, missc = [], [], [], [], [], []
         for j, tree in enumerate(self.trees):
             bj = self.piece_batches[j]
-            rows, acc, walk_ok = tree.draw(u_joins[j])
+            rows, acc, walk_ok, *skel = tree.draw(u_joins[j],
+                                                  skeleton=tree.has_residual)
             if budget is not None:
                 # the first budget[j] slots of an i.i.d. candidate stream: a
                 # count-derived prefix, so the survivors stay i.i.d. uniform
                 elig = torch.arange(bj, device=dev) < budget[j]
                 acc = acc & elig
                 walk_ok = walk_ok & elig
+                skel = [s & elig for s in skel]
             resc.append(walk_ok.sum() - acc.sum())
+            missc += [s.sum() - walk_ok.sum() for s in skel]
             acc, pr = self._pred_mask(j, rows, acc)
             predc.append(pr)
             fp_cache: Dict = {}
@@ -1301,8 +1312,9 @@ class TorchUnionSampler:
             cols.append(col[:bj])
             okc.append(walk_ok.sum())
             accc.append(acc.sum())
+        misses = torch.stack(missc).sum() if missc else self._zero
         return (cols, torch.stack(okc), torch.stack(resc), torch.stack(accc),
-                torch.stack(predc), need, budget)
+                torch.stack(predc), need, budget, misses)
 
     def _round_step(self, cb: _CallBuffers) -> None:
         """One Algorithm-1 round on the static buffers, with no host sync.
@@ -1321,7 +1333,7 @@ class TorchUnionSampler:
         probs_cum, bad = _cover_cum(self._probs_base, st.dead)
         extra = torch.where(active, torch.clamp(
             cb.n - cb.total - st.owed.sum(), 0, self._slot_width), zero)
-        cols, okc, resc, accc, predc, need, budget = self._round_core(
+        cols, okc, resc, accc, predc, need, budget, misses = self._round_core(
             probs_cum, st.owed, extra, st.ema, st.count)
         # `extra` is 0 once total >= n, but the carried `owed` is not
         need = torch.where(active, need, zero)
@@ -1350,7 +1362,7 @@ class TorchUnionSampler:
         cb.stats.add_(torch.where(active, torch.stack([
             drawn, drawn,
             okc.sum() - resc.sum() - predc.sum() - accc.sum(), resc.sum(),
-            predc.sum(), dropped]), zero))
+            predc.sum(), dropped, misses]), zero))
         ps = cb.pstats
         cb.pstats.copy_(torch.where(active, torch.stack([
             ps[:, 0] + (budget if adaptive else self._pbatch),

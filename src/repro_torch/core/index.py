@@ -4,9 +4,12 @@ Port copy of ``repro.core.index`` (plus ``catalog_util.as_tuple``).  An
 index over ``(relation, key)`` is ``(perm, sorted_vals)``: the argsort
 permutation and the key column in sorted order.  Every host probe (``lo/hi``
 range per query), degree lookup and EW aggregation reduces to
-``np.searchsorted`` over these arrays; the device engine builds its own
-int32 copies (:mod:`repro_torch.core.backends.torch_backend`) and probes
-them with the CUDA kernels of :mod:`repro_torch.kernels.probe`.
+``np.searchsorted`` over these arrays.  A composite key's queries are
+packed with the widths the index packed its own rows with
+(:func:`query_keys`), so equal keys meet whatever the query side's maxima.
+The device engine builds its own int32 copies
+(:mod:`repro_torch.core.backends.torch_backend`) and probes them with the
+CUDA kernels of :mod:`repro_torch.kernels.probe`.
 :class:`RowSetIndex` is the host engine's membership index over whole rows
 (sorted 128-bit row fingerprints, :mod:`repro_torch.core.membership`).
 """
@@ -18,7 +21,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .relation import Relation, fingerprint128
+from .relation import (Relation, combine_columns, fingerprint128, key_widths,
+                       pack_columns)
 
 
 def as_tuple(x: Union[str, Sequence[str], None]) -> Tuple[str, ...]:
@@ -37,6 +41,8 @@ class SortedIndex:
     key_attrs: Tuple[str, ...]
     perm: np.ndarray          # (n,) int64 row ids in sorted key order
     sorted_vals: np.ndarray   # (n,) int64 sorted keys
+    # a composite key's mixed-radix widths (None: one attribute, or hashed)
+    widths: Optional[Tuple[int, ...]] = None
     _max_degree: Optional[int] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
 
@@ -73,11 +79,24 @@ class SortedIndex:
         return self._max_degree
 
 
+def query_keys(index, cols: Sequence[np.ndarray]) -> np.ndarray:
+    """Keys of the query columns for ``index.ranges``, packed with the
+    widths the index packed its rows with, so a query outside the index's
+    domain is a miss.  An index without widths (a catalog of the reference
+    package, which packs each side with its own maxima) gets
+    :func:`combine_columns`, as that catalog's own probes do."""
+    if not hasattr(index, "widths"):
+        return combine_columns(cols)
+    return pack_columns(cols, index.widths)
+
+
 def build_index(rel: Relation, key_attrs: Sequence[str]) -> SortedIndex:
-    key = rel.key(list(key_attrs))
+    cols = [rel.columns[a] for a in key_attrs]
+    widths = key_widths(cols) if len(cols) > 1 else None
+    key = pack_columns(cols, widths)
     perm = np.argsort(key, kind="stable")
     return SortedIndex(rel.name, tuple(key_attrs), perm.astype(np.int64),
-                       key[perm])
+                       key[perm], widths)
 
 
 @dataclasses.dataclass

@@ -32,9 +32,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .index import Catalog, SortedIndex
+from .index import Catalog, SortedIndex, query_keys
 from .joins import JoinNode, JoinSpec
-from .relation import Relation, combine_columns
+from .relation import Relation
 
 Rows = Dict[str, np.ndarray]
 
@@ -124,8 +124,8 @@ class JoinSampler:
             for c in kids.get(n.alias, []):
                 crel = self._reduced[c.alias]
                 cidx = self.cat.index(crel, list(c.edge_attrs))
-                key = combine_columns([rel.columns[a] for a in c.edge_attrs])
-                mask &= cidx.contains(key)
+                mask &= cidx.contains(query_keys(
+                    cidx, [rel.columns[a] for a in c.edge_attrs]))
             if not mask.all():
                 self._reduced[n.alias] = rel.filter(mask, name=f"{rel.name}#red{n.alias}")
         if full:
@@ -134,8 +134,8 @@ class JoinSampler:
                 prel = self._reduced[n.parent]
                 crel = self._reduced[n.alias]
                 pidx = self.cat.index(prel, list(n.edge_attrs))
-                key = combine_columns([crel.columns[a] for a in n.edge_attrs])
-                mask = pidx.contains(key)
+                mask = pidx.contains(query_keys(
+                    pidx, [crel.columns[a] for a in n.edge_attrs]))
                 if not mask.all():
                     self._reduced[n.alias] = crel.filter(mask, name=f"{crel.name}#redf{n.alias}")
             # rebuild edge indexes against reduced children happens in _prepare caller
@@ -153,8 +153,8 @@ class JoinSampler:
                 cs = np.zeros(plan.index.nrows + 1, dtype=np.float64)
                 np.cumsum(cw[plan.index.perm], out=cs[1:])
                 plan.weight_prefix = cs
-                key = combine_columns([rel.columns[a] for a in c.edge_attrs])
-                lo, hi = plan.index.ranges(key)
+                lo, hi = plan.index.ranges(query_keys(
+                    plan.index, [rel.columns[a] for a in c.edge_attrs]))
                 w = w * (cs[hi] - cs[lo])
             weights[n.alias] = w
         self.node_weights = weights
@@ -209,8 +209,8 @@ class JoinSampler:
 
         for n in self.order[1:]:
             plan = self.edges[n.alias]
-            key = combine_columns([rows[a] for a in n.edge_attrs])
-            lo, hi = plan.index.ranges(key)
+            lo, hi = plan.index.ranges(query_keys(
+                plan.index, [rows[a] for a in n.edge_attrs]))
             d = hi - lo
             if n.kind == "tree" and self.method == "ew":
                 cs = plan.weight_prefix

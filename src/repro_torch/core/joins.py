@@ -12,7 +12,10 @@ survives; join attributes appear once), which is what makes the batched
 membership probes exact.  ``full_join`` materialises the result with
 vectorised sorted-index expansion — the FULLJOIN baseline, used by the exact
 warm-up and the tests, not by the samplers; it applies ``reject_preds``, as
-does :func:`join_size`.
+does :func:`join_size`.  Each ``full_join`` is the span
+``warmup.materialise``, and the rows each expansion step of ``full_join`` and
+``join_size`` builds add to the registry counter
+``repro_warmup_rows_materialised_total{join}`` (unless ``REPRO_OBS=off``).
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .index import Catalog, as_tuple
-from .relation import Relation, combine_columns
+from .. import obs
+from .index import Catalog, as_tuple, query_keys
+from .relation import Relation
 
 
 @dataclasses.dataclass
@@ -170,13 +174,23 @@ def chain_join(name: str, relations: Sequence[Relation],
     return JoinSpec(name, nodes)
 
 
+ROWS_MATERIALISED = "repro_warmup_rows_materialised_total"
+
+
+def _rows_built(spec: JoinSpec, rows: int) -> None:
+    """Add one expansion step's rows to the join's registry counter."""
+    if obs.enabled():
+        obs.get_registry().counter(
+            ROWS_MATERIALISED, "rows built by the host's join expansions",
+            ("join",)).labels(join=spec.name).inc(rows)
+
+
 def _expand(cat: Catalog, inter: Dict[str, np.ndarray], child: Relation,
             edge_attrs: Tuple[str, ...]) -> Dict[str, np.ndarray]:
     """inter ⋈ child on edge_attrs, vectorised via the child's sorted index."""
     idx = cat.index(child, list(edge_attrs))
     n = next(iter(inter.values())).shape[0] if inter else 0
-    key = combine_columns([inter[a] for a in edge_attrs])
-    lo, hi = idx.ranges(key)
+    lo, hi = idx.ranges(query_keys(idx, [inter[a] for a in edge_attrs]))
     counts = hi - lo
     total = int(counts.sum())
     rep = np.repeat(np.arange(n), counts)
@@ -198,11 +212,17 @@ def full_join(cat: Catalog, spec: JoinSpec) -> Dict[str, np.ndarray]:
     ``reject_preds`` (if any) are applied to the output — the filtered join
     is the member of the union, so exact baselines must count it.
     """
+    with obs.span("warmup.materialise"):
+        return _full_join(cat, spec)
+
+
+def _full_join(cat: Catalog, spec: JoinSpec) -> Dict[str, np.ndarray]:
     order = spec.expansion_order()
     inter: Dict[str, np.ndarray] = {a: c.copy()
                                     for a, c in order[0].relation.columns.items()}
     for n in order[1:]:
         inter = _expand(cat, inter, n.relation, n.edge_attrs)
+        _rows_built(spec, next(iter(inter.values())).shape[0])
     if spec.reject_preds:
         n_rows = next(iter(inter.values())).shape[0] if inter else 0
         keep = np.ones(n_rows, dtype=bool)
@@ -234,7 +254,7 @@ def join_size(cat: Catalog, spec: JoinSpec) -> int:
     count_weight = np.ones(order[0].relation.nrows, dtype=np.int64)
     for i, n in enumerate(order[1:], start=1):
         idx = cat.index(n.relation, list(n.edge_attrs))
-        lo, hi = idx.ranges(combine_columns([inter[a] for a in n.edge_attrs]))
+        lo, hi = idx.ranges(query_keys(idx, [inter[a] for a in n.edge_attrs]))
         counts = hi - lo
         # expand only when this child brings attributes a later edge keys on
         later_needed = set()
@@ -248,4 +268,5 @@ def join_size(cat: Catalog, spec: JoinSpec) -> int:
             keep = counts > 0
             count_weight = count_weight[keep] * counts[keep]
             inter = {a: c[keep] for a, c in inter.items()}
+        _rows_built(spec, count_weight.shape[0])
     return int(count_weight.sum())

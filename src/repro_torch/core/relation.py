@@ -15,7 +15,7 @@ of the actual column values.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,25 +64,44 @@ def combine_columns(cols: Sequence[np.ndarray]) -> np.ndarray:
     cols = [np.asarray(c, dtype=np.int64) for c in cols]
     if len(cols) == 1:
         return cols[0]
+    return pack_columns(cols, key_widths(cols))
+
+
+def key_widths(cols: Sequence[np.ndarray]) -> Optional[Tuple[int, ...]]:
+    """The mixed-radix widths :func:`combine_columns` packs ``cols`` with
+    (each column's maximum + 1), or None where it hashes them instead
+    (a negative value, or a combined domain of 2**62 or more)."""
     widths = []
-    ok = True
     for c in cols:
-        lo = int(c.min(initial=0))
-        hi = int(c.max(initial=0))
-        if lo < 0:
-            ok = False
-            break
-        widths.append(hi + 1)
-    if ok:
-        total = 1
-        for w in widths:
-            total *= max(w, 1)
-        if total < (1 << 62):
-            out = np.zeros_like(cols[0])
-            for c, w in zip(cols, widths):
-                out = out * np.int64(max(w, 1)) + c
-            return out
-    return fingerprint_columns(cols, salt=7).astype(np.int64) & np.int64(0x7FFFFFFFFFFFFFFF)
+        c = np.asarray(c)
+        if int(c.min(initial=0)) < 0:
+            return None
+        widths.append(max(int(c.max(initial=0)) + 1, 1))
+    total = 1
+    for w in widths:
+        total *= w
+    return tuple(widths) if total < (1 << 62) else None
+
+
+def pack_columns(cols: Sequence[np.ndarray],
+                 widths: Optional[Tuple[int, ...]]) -> np.ndarray:
+    """Composite keys of ``cols`` packed with given mixed-radix ``widths``
+    (None: the 63-bit hash mix).  A row with a value outside its width
+    packs to -1, which no packed key equals.  One column passes through."""
+    cols = [np.asarray(c, dtype=np.int64) for c in cols]
+    if len(cols) == 1:
+        return cols[0]
+    if widths is None:
+        return (fingerprint_columns(cols, salt=7).astype(np.int64)
+                & np.int64(0x7FFFFFFFFFFFFFFF))
+    out = np.zeros_like(cols[0])
+    inside = np.ones(out.shape[0], dtype=bool)
+    for c, w in zip(cols, widths):
+        out = out * np.int64(w) + c
+        inside &= (c >= 0) & (c < w)
+    if not inside.all():
+        out[~inside] = -1
+    return out
 
 
 # ---------------------------------------------------------------------------

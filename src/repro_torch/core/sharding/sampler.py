@@ -31,18 +31,19 @@ Then the two loops part:
   loop): each rank keeps its own FIFO banks of ``surplus_cap // world``
   rows per piece; only the small carry (shortfall, dead flags, streaks,
   under ``plan="adaptive"`` the EMAs and the global bank occupancy) is
-  replicated.  One ``all_gather_into_tensor`` of every rank's ``(5, nj)``
-  stack of bank count, accepted, ok, residual and predicate-reject counts
-  lets every rank compute the same shard-major water filling (bank take,
-  then fresh take, rank ``s``'s slice of each) and its own rows' global
-  output positions, with no further collective; each rank scatters its
-  rows there in an output of its own, and one ``all_reduce(SUM)`` merges
-  the disjoint outputs at the fetch.  The round is the unsharded engine's
-  gated step over static buffers: at world 1 (no collective) it is
-  captured as one CUDA graph per capacity class on the card and replayed in
-  chunks; at world > 1 it runs eagerly in chunks of ``K`` rounds, ``K``
-  taken from the replicated ``total`` and ``rounds`` only, so every rank
-  issues the same collectives; one host sync per chunk either way.
+  replicated.  One ``all_gather_into_tensor`` of every rank's ``(6, nj)``
+  stack of bank count, accepted, ok, residual, predicate-reject and
+  residual-miss counts lets every rank compute the same shard-major water
+  filling (bank take, then fresh take, rank ``s``'s slice of each) and its
+  own rows' global output positions, with no further collective; each rank
+  scatters its rows there in an output of its own, and one
+  ``all_reduce(SUM)`` merges the disjoint outputs at the fetch.  The round
+  is the unsharded engine's gated step over static buffers: at world 1 (no
+  collective) it is captured as one CUDA graph per capacity class on the
+  card and replayed in chunks; at world > 1 it runs eagerly in chunks of
+  ``K`` rounds, ``K`` taken from the replicated ``total`` and ``rounds``
+  only, so every rank issues the same collectives; one host sync per chunk
+  either way.
 * ``fused_rounds="host"``: **one all-gather** of the accepted matrices and
   counts per round, so every rank holds the same global shard-major
   matrices, and the inherited host loop (global surplus banking, one sync
@@ -160,15 +161,16 @@ class ShardedUnionSampler(TorchUnionSampler):
         if self.world > 1:
             mats, counts = self._gather_round(mats, counts)
         return (mats, counts[0], counts[1], counts[2], counts[3], need,
-                budget)
+                budget, counts[4].sum())
 
     def _local_round(self, probs_cum, owed, extra, ema=None,
                      bank_count=None):
         """Selection, this rank's draws, predicates, the fingerprint
         exchange and compaction.  Returns this rank's compacted
-        ``(B_j, A+1)`` matrices, its ``(4, nj)`` (walk_ok, residual,
-        accepted, predicate-reject) counts, the replicated per-piece need
-        and (adaptive plan, else None) the replicated global budget;
+        ``(B_j, A+1)`` matrices, its ``(5, nj)`` (walk_ok, residual,
+        accepted, predicate-reject, residual-miss) counts, the replicated
+        per-piece need and (adaptive plan, else None) the replicated global
+        budget;
         ``bank_count`` is the global bank occupancy the budget reads."""
         nj = len(self.trees)
         dev = self.device
@@ -197,15 +199,19 @@ class ShardedUnionSampler(TorchUnionSampler):
             bshard = (budget // world
                       + (self.rank < budget % world).to(torch.int32))
         # (2) local i.i.d. whole-join draws, (3) predicate masks
-        rows_j, acc_j, okc, resc, predc = [], [], [], [], []
+        rows_j, acc_j, okc, resc, predc, missc = [], [], [], [], [], []
         for j, st in enumerate(self.strees):
-            rows, acc, walk_ok = st.tree.draw_with_root(
-                u_joins[j], st.root_prefix, st.root_cols, st.n_root)
+            rows, acc, walk_ok, *skel = st.tree.draw_with_root(
+                u_joins[j], st.root_prefix, st.root_cols, st.n_root,
+                skeleton=st.tree.has_residual)
             if bshard is not None:
                 elig = torch.arange(bs[j], device=dev) < bshard[j]
                 acc = acc & elig
                 walk_ok = walk_ok & elig
+                skel = [s & elig for s in skel]
             resc.append(walk_ok.sum() - acc.sum())
+            missc.append(skel[0].sum() - walk_ok.sum() if skel
+                         else self._zero)
             okc.append(walk_ok.sum())
             acc, pr = self._pred_mask(j, rows, acc)
             predc.append(pr)
@@ -237,7 +243,8 @@ class ShardedUnionSampler(TorchUnionSampler):
             mats.append(col[:bs[j]])
             accc.append(acc.sum())
         counts = torch.stack([torch.stack(okc), torch.stack(resc),
-                              torch.stack(accc), torch.stack(predc)])
+                              torch.stack(accc), torch.stack(predc),
+                              torch.stack(missc)])
         return mats, counts, need, budget
 
     # -- the per-rank device loop (fused_rounds="device") ----------------------
@@ -259,7 +266,7 @@ class ShardedUnionSampler(TorchUnionSampler):
         return self._shard_step(cb)
 
     def _gather_counts(self, local: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``(5, nj)`` count stack as ``(world, 5, nj)``."""
+        """Every rank's ``(6, nj)`` count stack as ``(world, 6, nj)``."""
         if self.world == 1:
             return local[None]
         import torch.distributed as dist
@@ -291,14 +298,15 @@ class ShardedUnionSampler(TorchUnionSampler):
         mats, counts, need, budget = self._local_round(
             probs_cum, st.owed, extra, st.ema, st.gcount)
         need = torch.where(active, need, zero)
-        okc, resc, accc, predc = counts
+        okc, resc, accc, predc, missc = counts
         # one tiny exchange: (bank count, accepted, ok, residual,
-        # predicate-reject) of every rank
+        # predicate-reject, residual-miss) of every rank
         gat = self._gather_counts(torch.stack(
-            [st.count, accc, okc, resc, predc]).to(torch.int64))
+            [st.count, accc, okc, resc, predc, missc]).to(torch.int64))
         counts_w = gat[:, 0]                                # (world, nj)
         acc_w = torch.where(active, gat[:, 1], zero)
-        acc_v, ok_v, res_v, pred_v = (gat[:, i].sum(0) for i in range(1, 5))
+        acc_v, ok_v, res_v, pred_v, miss_v = (gat[:, i].sum(0)
+                                              for i in range(1, 6))
         accg = acc_w.sum(0)
         # bank take (FIFO, capped) → fresh take → carried shortfall
         dtg = torch.clamp(torch.minimum(need, counts_w.sum(0)),
@@ -335,7 +343,8 @@ class ShardedUnionSampler(TorchUnionSampler):
                  else zero + int(sum(self.piece_batches)))
         cb.stats.add_(torch.where(active, torch.stack([
             drawn, drawn, ok_v.sum() - res_v.sum() - pred_v.sum()
-            - acc_v.sum(), res_v.sum(), pred_v.sum(), dropped]), zero))
+            - acc_v.sum(), res_v.sum(), pred_v.sum(), dropped,
+            miss_v.sum()]), zero))
         ps = cb.pstats
         cb.pstats.copy_(torch.where(active, torch.stack([
             ps[:, 0] + (budget if adaptive else self._pbatch),
@@ -460,7 +469,7 @@ class ShardedUnionSampler(TorchUnionSampler):
 
     def _gather_round(self, mats, counts):
         """One ``all_gather_into_tensor`` of this rank's compacted matrices
-        and its ``(4, nj)`` counts; returns the global shard-major matrices
+        and its ``(5, nj)`` counts; returns the global shard-major matrices
         (rank ``s``'s accepted rows after those of ranks ``< s``) and the
         summed counts, the same on every rank."""
         import torch.distributed as dist
@@ -470,8 +479,8 @@ class ShardedUnionSampler(TorchUnionSampler):
         g = torch.empty(world * flat.shape[0], dtype=torch.int32, device=dev)
         dist.all_gather_into_tensor(g, flat, group=self.mesh.group)
         g = g.view(world, flat.shape[0])
-        nj = len(mats)
-        every = g[:, flat.shape[0] - 4 * nj:].reshape(world, 4, nj).to(
+        nj, nc = len(mats), counts.shape[0]
+        every = g[:, flat.shape[0] - nc * nj:].reshape(world, nc, nj).to(
             torch.int64)
         cols, off = [], 0
         for j, m in enumerate(mats):

@@ -74,6 +74,9 @@ class SamplerStats:
     reuse_rejects: int = 0
     backtrack_removed: int = 0
     samples_emitted: int = 0       # denominator of psi(): rows handed out
+    residual_misses: int = 0       # §8.2 cyclic: skeleton walks whose residual
+                                   # probe found no row (d = 0, so Π d/M = 0);
+                                   # counted by the fused engine's rounds
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
