@@ -29,7 +29,17 @@ Phases, in order (each raises on failure, so any failure exits non-zero):
    peak memory; served rows are members of their home piece and of no
    earlier piece (checked on the host against the base relations, sharing
    no code with the engine), and home frequencies follow the cover's
-   selection law;
+   selection law; ``member_lookup`` (B5) must launch on it, as on
+   ``[adaptive]``, ``[device-loop]`` and ``[replicas]``;
+4b. member lookup (``[member-lookup]``) — ``member_lookup`` at the last
+   probing join of UQ1 (this state) and of Q5 (the benchmark's
+   ``q5-sf1`` program, TPC-H SF 1, built as the benchmark builds it), on
+   the inputs of a real round (a host-loop engine's first round at the
+   round batch, the call recorded): verdicts and lookup count bit-equal to
+   ``member_lookup_plain``, device ms of the call and of the kernel, the
+   plain version's ms, launches per call, the byte bound and the chain of
+   dependent loads (``levels``), the ptxas report; Q5's device loop must
+   launch it, once per probing join of a replayed round;
 5. kernel entry point (``[ops]``) — ``repro_torch.kernels.ops`` driven on
    the card with the launch counts set to 0 just before and read just after
    (> 0 for every kernel): ``segdegree`` on every sorted key column of
@@ -230,9 +240,10 @@ it also prints both modes' engine rates in turns and both modes'
 ``[profile]`` split with the device busy share.  The same parity runs on
 UQ4 after ``[residual]`` (B2 on the residual hop) and on UQ2 rejection
 after ``[uq2-rejection]`` (predicate masks).  After each parity run one
-more device-mode call runs under the profiler: its probe kernel events
-(inside graph replays) must equal exactly the launches recorded in one
-captured round × the rounds replayed, which is what the launch counts add.
+more device-mode call runs under the profiler: its probe and
+``member_lookup`` kernel events (inside graph replays) must equal exactly
+the launches recorded in one captured round × the rounds replayed, which
+is what the launch counts add.
 ``[metrics]`` serves UQ1 with a ``MetricsServer`` on an ephemeral port and
 scrapes ``/healthz`` and ``/metrics`` over localhost: the engine and serve
 series, under the reference's names, equal the engine's counters.  The
@@ -250,6 +261,10 @@ counts under ``launches_by_path`` and ``launches_per_decode_step`` beside
 them; the
 ``sorted_probe`` and ``probe_pick`` rows carry ``[train]``'s counts under
 ``launches_by_path`` too, and ``probe_pick``'s ``[train-families]``.
+
+The ``member_lookup`` row's ``launches`` are ``[main]``'s, with the other
+served UQ1 paths under ``launches_by_path`` and Q5's numbers under
+``q5_`` keys.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -602,6 +617,119 @@ def phase_kernels(sampler) -> list:
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = bound_ms * 1e3
         out.append(row)
+    return out
+
+
+def _member_round_inputs(sampler, round_batch: int):
+    """The inputs of the last probing join's ``member_lookup`` in one real
+    round: a host-loop engine on ``sampler``'s backend, cover and plan runs
+    one ``sample(round_batch)`` with ``member.member_lookup`` wrapped, and
+    the first launch over the most earlier pieces is kept (its plan, the
+    candidates' columns, the live mask after the draw, residual test,
+    budget and predicates, and the earlier pieces' predicate masks)."""
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.kernels import member
+    real, kept = member.member_lookup, []
+
+    def record(plan, rows, acc=None, preds=None):
+        if not kept or len(plan.pieces) > len(kept[0].pieces):
+            kept[:] = [plan, {a: c.clone() for a, c in rows.items()},
+                       acc.clone(), [None if m is None else m.clone()
+                                     for m in preds]]
+        return real(plan, rows, acc, preds)
+
+    host = SetUnionSampler(sampler.cat, sampler.joins, sampler.cover, seed=7,
+                           backend=sampler.backend, device="cuda",
+                           round_batch=round_batch, plan=sampler.plan,
+                           fused_rounds="host")
+    member.member_lookup = record
+    try:
+        host.sample(round_batch)
+    finally:
+        member.member_lookup = real
+    return kept
+
+
+def phase_member_lookup(sampler, round_batch: int) -> dict:
+    """``member_lookup`` (B5) at the last probing join of ``sampler``'s
+    union, on the inputs of a real round (:func:`_member_round_inputs`):
+    verdicts and lookup count bit-equal to ``member_lookup_plain``; device
+    ms of the call (the counter's memset with it) and of the kernel alone,
+    the plain version's ms, the launches per call, and the bound: bytes
+    (the live mask read and the verdicts written, 1 B a candidate; per live
+    candidate and earlier piece, every relation's columns, 4 B each, and
+    the salt-1 and salt-2 entries of its hit, 16 B) over HBM bandwidth.
+    The kernel is bound instead by its longest chain of dependent loads,
+    ``levels``: the lower bound over the largest index, then its
+    ``kmax`` window."""
+    from repro_torch.kernels import build, member
+    plan, rows, acc, preds = _member_round_inputs(sampler, round_batch)
+    kern = lambda: member.member_lookup(plan, rows, acc, preds)  # noqa: E731
+    plain = lambda: member.member_lookup_plain(  # noqa: E731
+        plan, rows, acc, preds)
+    a, b = kern(), plain()
+    _check_equal(a, b, "member_lookup at the last probing join")
+    live = int(acc.sum())
+    piece_bytes = [sum(4 * len(r[0]) + 16 for r in piece)
+                   for piece in plan.pieces]
+    nbytes = 2 * acc.numel() + live * sum(piece_bytes)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel_ms, events = _kernel_event_ms(kern, "member_lookup_kernel")
+    out = {
+        "ms": _device_ms(kern), "kernel_ms": kernel_ms,
+        "kernel_events_per_call": events, "plain_ms": _device_ms(plain),
+        "call_ms": _call_ms(kern), "plain_call_ms": _call_ms(plain),
+        "bound_ms": bound_ms, "bound_by": "bytes", "bound_bytes": nbytes,
+        "bound_share": bound_ms / kernel_ms,
+        "levels": max(math.ceil(math.log2(r[4])) + r[3] + 1
+                      for piece in plan.pieces for r in piece if r[4]),
+        "launches_per_call": _launches_per_call("member_lookup", kern),
+        "candidates": acc.numel(), "live": live,
+        "lookups": int(a[1]), "pieces": len(plan.pieces),
+        "relations": [len(piece) for piece in plan.pieces],
+        "columns": len({x for piece in plan.pieces for r in piece
+                        for x in r[0]}),
+        "index_rows": max(r[4] for piece in plan.pieces for r in piece),
+        "ptxas": _ptxas_stats(build.build()["log"], "member_lookup_kernel",
+                              "member_lookup_kernel"),
+    }
+    if int(a[1]) != live * len(plan.pieces):
+        raise AssertionError(f"member_lookup: {int(a[1])} lookups for {live} "
+                             f"live candidates and {len(plan.pieces)} pieces")
+    return out
+
+
+def phase_member_q5(round_batch: int, seed: int = 7330000001) -> dict:
+    """Q5's cell program (``unionbench/configs/q5-sf1.json``: TPC-H SF 1,
+    three cyclic joins, exact cover, adaptive plan) built as the benchmark
+    builds it: ``member_lookup`` at its last probing join
+    (:func:`phase_member_lookup`), and the launches of one 8,192-row call of
+    its device loop (counts set to 0 just before, read just after; > 0)
+    beside the launches recorded in one captured round."""
+    import torch
+    from repro_torch.kernels import build
+    from unionbench import harness, inputs, program
+    config = harness.load_json(os.path.join(HERE, "unionbench", "configs",
+                                            "q5-sf1.json"))
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cat, joins = program.specs(inputs.build(config, seed))
+    cov = program.cover(config, cat, joins, seed, dev)
+    smp = program.set_union_sampler(config, cat, joins, cov, seed, dev)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "seed": seed,
+           "piece_batches": list(smp.engine.piece_batches)}
+    out.update(phase_member_lookup(smp, round_batch))
+    smp.sample(round_batch)                 # its capacity class captured
+    build.reset_launch_counts()
+    smp.sample(round_batch)
+    out["device_loop_launches"] = _launches()["member_lookup"]
+    if out["device_loop_launches"] <= 0:
+        raise AssertionError("[member-lookup] Q5's device loop launched no "
+                             "member_lookup")
+    C = 1 << max(10, (round_batch - 1).bit_length())
+    out["launches_per_round"] = \
+        smp.engine._buffers[C].replay_launches["member_lookup"]
     return out
 
 
@@ -1098,7 +1226,10 @@ def phase_ops(sampler, seed: int):
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = dict(build.launch_counts)
-    missing = [name for name, n in launches.items() if n <= 0]
+    # the entry point's kernels; member_lookup is the round's alone
+    # ([member-lookup] checks it)
+    missing = [name for name in ("sorted_probe", "probe_pick", "segdegree",
+                                 "decode_attention") if launches[name] <= 0]
     if missing:
         raise AssertionError(f"[ops] kernels not launched on the ops path: "
                              f"{missing}")
@@ -2757,10 +2888,16 @@ def _launches() -> dict:
     return dict(build.launch_counts)
 
 
-def _require_probes(label: str, launches: dict) -> None:
-    for k in ("sorted_probe", "probe_pick"):
+def _require_probes(label: str, launches: dict,
+                    kernels=("sorted_probe", "probe_pick")) -> None:
+    for k in kernels:
         if launches[k] <= 0:
             raise AssertionError(f"[{label}] kernel {k} was not launched")
+
+
+# the kernels every round of a UQ1 engine launches: both probes, and
+# member_lookup for each join after the first
+ROUND_KERNELS = ("sorted_probe", "probe_pick", "member_lookup")
 
 
 def _check_homes(label: str, joins, rows, home, canonical: bool) -> None:
@@ -2939,7 +3076,7 @@ def phase_replicas(wl, est, round_batch: int, backend, requests: int = 8,
         merged_stats = svc.stats()
     dt = time.perf_counter() - t0
     launches = _launches()
-    _require_probes("replicas", launches)
+    _require_probes("replicas", launches, ROUND_KERNELS)
     if [len(g) for g in got] != [samples] * requests:
         raise AssertionError("[replicas] short responses")
     check_membership(reps[0].inner, got[-1].rows, got[-1].home)
@@ -3405,9 +3542,10 @@ def _mode_parity(label: str, wl, est, round_batch: int, calls, backend,
             }, dev, host
 
 
-# the probe kernels' event names in a profiler trace, by launch-count key
+# the round's kernels' event names in a profiler trace, by launch-count key
 PROBE_EVENTS = (("sorted_probe", "sorted_probe_kernel"),
-                ("probe_pick", "probe_pick_kernel"))
+                ("probe_pick", "probe_pick_kernel"),
+                ("member_lookup", "member_lookup_kernel"))
 
 
 def _replay_events(label: str, dev, n: int, required) -> dict:
@@ -3456,7 +3594,7 @@ def phase_device_loop(wl, est, round_batch: int, backend) -> dict:
             "device-loop", wl, est, round_batch, DEVICE_LOOP_CALLS, backend,
             plan=plan)
         out[plan]["replay"] = _replay_events(
-            "device-loop", dev, round_batch, ("sorted_probe", "probe_pick"))
+            "device-loop", dev, round_batch, ROUND_KERNELS)
         if plan != "static":
             continue
         n = round_batch
@@ -3474,7 +3612,7 @@ def phase_device_loop(wl, est, round_batch: int, backend) -> dict:
         build.reset_launch_counts()
         rates.append(["device", rate(dev)])
         out["launches"] = _launches()           # the device-mode calls only
-        _require_probes("device-loop", out["launches"])
+        _require_probes("device-loop", out["launches"], ROUND_KERNELS)
         out["engine_samples_per_s_in_turns"] = rates
         dev_rate, host_rate = ((rates[0][1] + rates[3][1]) / 2,
                                (rates[1][1] + rates[2][1]) / 2)
@@ -3744,7 +3882,7 @@ def main(argv=None) -> int:
 
     # 3.+4. main path; kernel timing and draw parity run on its state first
     main_out = run_path("main", "UQ1", args.scale, args.requests, args.samples,
-                        args.round_batch, ("sorted_probe", "probe_pick"),
+                        args.round_batch, ROUND_KERNELS,
                         before_serve=kernels_and_parity)
     main_sampler, wl1, est1 = (main_out.pop(k) for k in ("sampler", "wl",
                                                          "est"))
@@ -3758,10 +3896,28 @@ def main(argv=None) -> int:
     print("[profile] " + json.dumps(prof), flush=True)
     mark("main")
 
+    # B5 at UQ1's and Q5's last probing join, on a real round's inputs
+    member_row = {"name": "member_lookup", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/member.cu",
+                  "replaces": "src/repro/core/backends/jax_backend.py:610",
+                  "path": "UQ1 main path",
+                  "launches": main_out["launches"]["member_lookup"],
+                  "launches_by_path": {
+                      "UQ1 static": main_out["launches"]["member_lookup"]}}
+    member_row.update(phase_member_lookup(main_sampler, args.round_batch))
+    member_row["node"] = f"UQ1 join {len(main_sampler.order) - 1}"
+    q5 = phase_member_q5(args.round_batch)
+    member_row.update({"q5_" + k: v for k, v in q5.items()
+                       if k not in ("ptxas",)})
+    rows.append(member_row)
+    print("[member-lookup] " + json.dumps(member_row), flush=True)
+    mark("member-lookup")
+
     def path_launches(label, out):
         for r in rows:
-            if r["name"] in ("sorted_probe", "probe_pick"):
-                r["launches_by_path"][label] = out["launches"][r["name"]]
+            if r["name"] in ROUND_KERNELS:
+                r["launches_by_path"][label] = out["launches"].get(
+                    r["name"], 0)
 
     # 5. the adaptive round planner on the same UQ1 state, served the same
     from repro_torch.core.union_sampler import SetUnionSampler
@@ -3770,8 +3926,7 @@ def main(argv=None) -> int:
                                  device="cuda", round_batch=args.round_batch,
                                  plan="adaptive")
     ad_out = run_path("adaptive", "UQ1", args.scale, args.requests,
-                      args.samples, args.round_batch,
-                      ("sorted_probe", "probe_pick"),
+                      args.samples, args.round_batch, ROUND_KERNELS,
                       built=(ad_sampler, wl1, est1,
                              time.perf_counter() - t0))
     for k in ("sampler", "wl", "est"):

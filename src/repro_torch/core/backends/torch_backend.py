@@ -65,7 +65,8 @@ import torch
 
 from ... import obs
 from ...device import resolve_device
-from ...kernels import build
+from ...kernels import build, member
+from ...kernels.member import fp32, mix32  # noqa: F401  (re-exported)
 from ...kernels.probe import (probe_pick, probe_pick_plain, sorted_probe,
                               sorted_probe_plain)
 from .. import planner
@@ -76,42 +77,8 @@ from ..predicates import compile_preds_torch, relation_mask
 from .base import Backend
 
 _I32_LIM = 1 << 31
-_M32 = 0xFFFFFFFF
 
 Rows = Dict[str, torch.Tensor]
-
-
-# ---------------------------------------------------------------------------
-# 32-bit row fingerprints: the reference's uint32 arithmetic (murmur3-style
-# finalizer, FNV-style column combine) done in int64 and masked to 32 bits
-# after every step.  A product of two 32-bit values can pass 2^63; it wraps,
-# and the low 32 bits it keeps are the uint32 product's.
-# ---------------------------------------------------------------------------
-
-
-def _mix32_consts(salt: int) -> Tuple[int, int, int]:
-    return ((0x9E3779B9 * (salt + 1)) & _M32, 0x85EBCA6B, 0xC2B2AE35)
-
-
-def mix32(x: torch.Tensor, salt: int = 0) -> torch.Tensor:
-    """Murmur3-style finalizer; int64 in, int64 in ``[0, 2^32)`` out."""
-    add, m1, m2 = _mix32_consts(salt)
-    z = ((x.to(torch.int64) & _M32) + add) & _M32
-    z = ((z ^ (z >> 16)) * m1) & _M32
-    z = ((z ^ (z >> 13)) * m2) & _M32
-    return z ^ (z >> 16)
-
-
-_FNV32 = 16777619
-
-
-def fp32(cols: Sequence[torch.Tensor], salt: int) -> torch.Tensor:
-    """Row fingerprint of a tuple of columns, as int64 in ``[0, 2^32)``."""
-    acc = torch.zeros(cols[0].shape[0], dtype=torch.int64,
-                      device=cols[0].device)
-    for i, c in enumerate(cols):
-        acc = ((acc * _FNV32) & _M32) ^ mix32(c, salt=salt * 1000 + i)
-    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +426,7 @@ class TorchJoinMembership:
             self._pred_fn = compile_preds_torch(spec.reject_preds,
                                                 spec.output_attrs)
         # (attrs, sorted fp1, fp2 in fp1 order, kmax, nrows) per base relation
-        self.rels: List[Tuple[Tuple[str, ...], torch.Tensor, torch.Tensor,
-                              int, int]] = []
+        self.rels: List[member.Rel] = []
         seen = set()
         for node in spec.nodes:
             rel = node.relation
@@ -469,44 +435,25 @@ class TorchJoinMembership:
             if (rel.name, attrs) in seen:
                 continue
             seen.add((rel.name, attrs))
-            cols = [torch.as_tensor(_as_i32(rel.columns[a], f"{rel.name}.{a}"),
-                                    device=self.device) for a in attrs]
-            fp1, fp2 = fp32(cols, salt=1), fp32(cols, salt=2)
-            s1, order = torch.sort(fp1, stable=True)
-            kmax = 0
-            if s1.shape[0]:
-                kmax = int(torch.unique_consecutive(
-                    s1, return_counts=True)[1].max())
-            self.rels.append((attrs, s1, fp2[order].contiguous(), kmax,
-                              int(rel.nrows)))
+            self.rels.append(member.relation_index(
+                attrs, [_as_i32(rel.columns[a], f"{rel.name}.{a}")
+                        for a in attrs], self.device))
+        self.plan = member.MemberPlan([self.rels])
+
+    def pred_mask(self, rows: Rows) -> Optional[torch.Tensor]:
+        """The join's compiled rejection predicates over ``rows`` (``None``
+        without predicates)."""
+        return None if self._pred_fn is None else self._pred_fn(rows)
 
     def contains(self, rows: Rows,
                  fp_cache: Optional[Dict[Tuple[str, ...], Tuple]] = None
                  ) -> torch.Tensor:
-        """Rows are device int32 columns of the output schema.  Pass one
-        ``fp_cache`` dict across the joins probed with the same rows to
-        fingerprint each attribute set once."""
-        first = rows[next(iter(rows))]
-        b = first.shape[0]
-        res = (torch.ones(b, dtype=torch.bool, device=first.device)
-               if self._pred_fn is None else self._pred_fn(rows))
-        for attrs, s1, s2, kmax, n in self.rels:
-            if n == 0:
-                return torch.zeros(b, dtype=torch.bool, device=first.device)
-            hit = None if fp_cache is None else fp_cache.get(attrs)
-            if hit is None:
-                cols = [rows[a] for a in attrs]
-                hit = (fp32(cols, salt=1), fp32(cols, salt=2))
-                if fp_cache is not None:
-                    fp_cache[attrs] = hit
-            q1, q2 = hit
-            lo = torch.searchsorted(s1, q1, side="left")
-            m = torch.zeros(b, dtype=torch.bool, device=first.device)
-            for k in range(kmax):   # duplicate window (kmax is tiny)
-                pos = torch.clamp(lo + k, max=n - 1)
-                m = m | ((lo + k < n) & (s1[pos] == q1) & (s2[pos] == q2))
-            res = res & m
-        return res
+        """Rows are device int32 columns of the output schema.  On the card
+        one ``member_lookup`` launch; on the CPU the plain version, where
+        one ``fp_cache`` dict passed across the joins probed with the same
+        rows fingerprints each attribute set once."""
+        return member.contains(self.plan, rows, self.pred_mask(rows),
+                               fp_cache)
 
 
 class TorchMembershipOracle:
@@ -800,7 +747,7 @@ class PhiloxUniforms:
 # SamplerStats fields the engine accumulates as one device vector
 _STAT_FIELDS = ("iterations", "candidate_draws", "cover_rejects",
                 "residual_rejects", "pred_rejects", "dropped_slots",
-                "residual_misses")
+                "residual_misses", "member_lookups")
 
 # Per-piece round counters, one (nj, 5) device matrix per sample() call:
 # candidate draws, cover-accepted rows, §8.2 residual rejections, rows
@@ -809,8 +756,8 @@ PIECE_STAT_FIELDS = ("draws", "accepts", "residual_rejects",
                      "bank_drained", "bank_hwm")
 
 # Layout of a capacity class's per-call counter vector (int64): the target
-# n, rows emitted, rounds run, the unreachable-cover flag, then the six
-# SamplerStats fields and the (nj, 5) per-piece counters
+# n, rows emitted, rounds run, the unreachable-cover flag, then the
+# _STAT_FIELDS and the (nj, 5) per-piece counters
 _CTR_N, _CTR_TOTAL, _CTR_ROUNDS, _CTR_FAIL, _CTR_STATS = range(5)
 
 # gated rounds run on a side stream before a capture (PyTorch's CUDA-graph
@@ -1218,6 +1165,7 @@ class TorchUnionSampler:
         self._buffers: Dict[int, _CallBuffers] = {}
         self._graph_pool = None
         self._obs_metrics = None
+        self._member_plans: Dict[int, member.MemberPlan] = {}
 
     def _set_piece_batches(self, piece_batches) -> None:
         """Set the per-join draw widths and the device constants derived
@@ -1264,8 +1212,8 @@ class TorchUnionSampler:
         Returns per join the accepted-compacted ``(B_j, A+1)`` matrices plus
         the (walk_ok, residual, accepted, predicate-reject) counts, the
         per-piece need = carry + this round's targets, (adaptive plan, else
-        None) the per-piece candidate budget, and the round's residual
-        misses."""
+        None) the per-piece candidate budget, the round's residual misses
+        and its member lookups (live candidates times earlier pieces)."""
         nj = len(self.trees)
         dev = self.device
         members = [self.backend.members[n] for n in self.order]
@@ -1284,6 +1232,7 @@ class TorchUnionSampler:
                 need.to(torch.int32), bank_count.to(torch.int32), ema[:, 0],
                 self._pbatch_i32, self._drain_w, planner.TORCH_XP)
         cols, okc, resc, accc, predc, missc = [], [], [], [], [], []
+        lookc = []
         for j, tree in enumerate(self.trees):
             bj = self.piece_batches[j]
             rows, acc, walk_ok, *skel = tree.draw(u_joins[j],
@@ -1299,9 +1248,11 @@ class TorchUnionSampler:
             missc += [s.sum() - walk_ok.sum() for s in skel]
             acc, pr = self._pred_mask(j, rows, acc)
             predc.append(pr)
-            fp_cache: Dict = {}
-            for q in range(j):             # pieces earlier in cover order
-                acc = acc & ~members[q].contains(rows, fp_cache)
+            if j:                          # pieces earlier in cover order
+                acc, looked = member.member_lookup(
+                    self._member_plan(j), rows, acc,
+                    [members[q].pred_mask(rows) for q in range(j)])
+                lookc.append(looked)
             dst = torch.where(acc, torch.cumsum(acc, 0) - 1, bj)
             mat = torch.stack([rows[a] for a in self.attrs]
                               + [torch.full((bj,), j, dtype=torch.int32,
@@ -1313,8 +1264,19 @@ class TorchUnionSampler:
             okc.append(walk_ok.sum())
             accc.append(acc.sum())
         misses = torch.stack(missc).sum() if missc else self._zero
+        lookups = torch.stack(lookc).sum() if lookc else self._zero
         return (cols, torch.stack(okc), torch.stack(resc), torch.stack(accc),
-                torch.stack(predc), need, budget, misses)
+                torch.stack(predc), need, budget, misses, lookups)
+
+    def _member_plan(self, j: int) -> member.MemberPlan:
+        """The earlier pieces that join ``j``'s candidates are looked up in
+        (built at the first round)."""
+        plan = self._member_plans.get(j)
+        if plan is None:
+            members = self.backend.members
+            plan = self._member_plans[j] = member.MemberPlan(
+                [members[n].rels for n in self.order[:j]])
+        return plan
 
     def _round_step(self, cb: _CallBuffers) -> None:
         """One Algorithm-1 round on the static buffers, with no host sync.
@@ -1333,8 +1295,9 @@ class TorchUnionSampler:
         probs_cum, bad = _cover_cum(self._probs_base, st.dead)
         extra = torch.where(active, torch.clamp(
             cb.n - cb.total - st.owed.sum(), 0, self._slot_width), zero)
-        cols, okc, resc, accc, predc, need, budget, misses = self._round_core(
-            probs_cum, st.owed, extra, st.ema, st.count)
+        (cols, okc, resc, accc, predc, need, budget, misses,
+         lookups) = self._round_core(probs_cum, st.owed, extra, st.ema,
+                                     st.count)
         # `extra` is 0 once total >= n, but the carried `owed` is not
         need = torch.where(active, need, zero)
         acc = torch.where(active, accc, zero)
@@ -1362,7 +1325,7 @@ class TorchUnionSampler:
         cb.stats.add_(torch.where(active, torch.stack([
             drawn, drawn,
             okc.sum() - resc.sum() - predc.sum() - accc.sum(), resc.sum(),
-            predc.sum(), dropped, misses]), zero))
+            predc.sum(), dropped, misses, lookups]), zero))
         ps = cb.pstats
         cb.pstats.copy_(torch.where(active, torch.stack([
             ps[:, 0] + (budget if adaptive else self._pbatch),

@@ -31,11 +31,11 @@ Then the two loops part:
   loop): each rank keeps its own FIFO banks of ``surplus_cap // world``
   rows per piece; only the small carry (shortfall, dead flags, streaks,
   under ``plan="adaptive"`` the EMAs and the global bank occupancy) is
-  replicated.  One ``all_gather_into_tensor`` of every rank's ``(6, nj)``
-  stack of bank count, accepted, ok, residual, predicate-reject and
-  residual-miss counts lets every rank compute the same shard-major water
-  filling (bank take, then fresh take, rank ``s``'s slice of each) and its
-  own rows' global output positions, with no further collective; each rank
+  replicated.  One ``all_gather_into_tensor`` of every rank's ``(7, nj)``
+  stack of bank count, accepted, ok, residual, predicate-reject,
+  residual-miss and member-lookup counts lets every rank compute the same
+  shard-major water filling (bank take, then fresh take, rank ``s``'s
+  slice of each) and its own rows' global output positions, with no further collective; each rank
   scatters its rows there in an output of its own, and one
   ``all_reduce(SUM)`` merges the disjoint outputs at the fetch.  The round
   is the unsharded engine's gated step over static buffers: at world 1 (no
@@ -161,14 +161,15 @@ class ShardedUnionSampler(TorchUnionSampler):
         if self.world > 1:
             mats, counts = self._gather_round(mats, counts)
         return (mats, counts[0], counts[1], counts[2], counts[3], need,
-                budget, counts[4].sum())
+                budget, counts[4].sum(), counts[5].sum())
 
     def _local_round(self, probs_cum, owed, extra, ema=None,
                      bank_count=None):
         """Selection, this rank's draws, predicates, the fingerprint
         exchange and compaction.  Returns this rank's compacted
-        ``(B_j, A+1)`` matrices, its ``(5, nj)`` (walk_ok, residual,
-        accepted, predicate-reject, residual-miss) counts, the replicated
+        ``(B_j, A+1)`` matrices, its ``(6, nj)`` (walk_ok, residual,
+        accepted, predicate-reject, residual-miss, member-lookup) counts
+        (lookups: live candidates times earlier pieces), the replicated
         per-piece need and (adaptive plan, else None) the replicated global
         budget;
         ``bank_count`` is the global bank occupancy the budget reads."""
@@ -220,10 +221,11 @@ class ShardedUnionSampler(TorchUnionSampler):
         # (4) one fingerprint exchange answers every earlier-piece probe
         found = self._exchange_probes(rows_j)
         # (5) containment, (6) local compaction (home id as last column)
-        mats, accc = [], []
+        mats, accc, lookc = [], [], []
         p = 0
         for j in range(nj):
             acc = acc_j[j]
+            lookc.append(acc.sum() * j)
             for q in range(j):
                 contained = torch.ones(bs[j], dtype=torch.bool, device=dev)
                 for _ in self.smems[q].rels:
@@ -244,7 +246,7 @@ class ShardedUnionSampler(TorchUnionSampler):
             accc.append(acc.sum())
         counts = torch.stack([torch.stack(okc), torch.stack(resc),
                               torch.stack(accc), torch.stack(predc),
-                              torch.stack(missc)])
+                              torch.stack(missc), torch.stack(lookc)])
         return mats, counts, need, budget
 
     # -- the per-rank device loop (fused_rounds="device") ----------------------
@@ -266,7 +268,7 @@ class ShardedUnionSampler(TorchUnionSampler):
         return self._shard_step(cb)
 
     def _gather_counts(self, local: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``(6, nj)`` count stack as ``(world, 6, nj)``."""
+        """Every rank's ``(7, nj)`` count stack as ``(world, 7, nj)``."""
         if self.world == 1:
             return local[None]
         import torch.distributed as dist
@@ -298,15 +300,15 @@ class ShardedUnionSampler(TorchUnionSampler):
         mats, counts, need, budget = self._local_round(
             probs_cum, st.owed, extra, st.ema, st.gcount)
         need = torch.where(active, need, zero)
-        okc, resc, accc, predc, missc = counts
+        okc, resc, accc, predc, missc, lookc = counts
         # one tiny exchange: (bank count, accepted, ok, residual,
-        # predicate-reject, residual-miss) of every rank
+        # predicate-reject, residual-miss, member-lookup) of every rank
         gat = self._gather_counts(torch.stack(
-            [st.count, accc, okc, resc, predc, missc]).to(torch.int64))
+            [st.count, accc, okc, resc, predc, missc, lookc]).to(torch.int64))
         counts_w = gat[:, 0]                                # (world, nj)
         acc_w = torch.where(active, gat[:, 1], zero)
-        acc_v, ok_v, res_v, pred_v, miss_v = (gat[:, i].sum(0)
-                                              for i in range(1, 6))
+        acc_v, ok_v, res_v, pred_v, miss_v, look_v = (gat[:, i].sum(0)
+                                                      for i in range(1, 7))
         accg = acc_w.sum(0)
         # bank take (FIFO, capped) → fresh take → carried shortfall
         dtg = torch.clamp(torch.minimum(need, counts_w.sum(0)),
@@ -344,7 +346,7 @@ class ShardedUnionSampler(TorchUnionSampler):
         cb.stats.add_(torch.where(active, torch.stack([
             drawn, drawn, ok_v.sum() - res_v.sum() - pred_v.sum()
             - acc_v.sum(), res_v.sum(), pred_v.sum(), dropped,
-            miss_v.sum()]), zero))
+            miss_v.sum(), look_v.sum()]), zero))
         ps = cb.pstats
         cb.pstats.copy_(torch.where(active, torch.stack([
             ps[:, 0] + (budget if adaptive else self._pbatch),
@@ -469,7 +471,7 @@ class ShardedUnionSampler(TorchUnionSampler):
 
     def _gather_round(self, mats, counts):
         """One ``all_gather_into_tensor`` of this rank's compacted matrices
-        and its ``(5, nj)`` counts; returns the global shard-major matrices
+        and its ``(6, nj)`` counts; returns the global shard-major matrices
         (rank ``s``'s accepted rows after those of ranks ``< s``) and the
         summed counts, the same on every rank."""
         import torch.distributed as dist

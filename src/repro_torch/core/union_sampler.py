@@ -77,6 +77,8 @@ class SamplerStats:
     residual_misses: int = 0       # §8.2 cyclic: skeleton walks whose residual
                                    # probe found no row (d = 0, so Π d/M = 0);
                                    # counted by the fused engine's rounds
+    member_lookups: int = 0        # (live candidate, earlier piece) pairs the
+                                   # fused engine's rounds looked up
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)

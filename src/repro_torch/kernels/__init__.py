@@ -10,7 +10,10 @@ shares its launch counter (``build.launch_counts``):
 * ``segdegree.segdegree`` — distinct count and max degree of a sorted
   column (replaces ``repro/kernels/segdegree.py``);
 * ``attention.decode_attention`` — one-token GQA decode attention
-  (replaces ``repro/kernels/attention.py``).
+  (replaces ``repro/kernels/attention.py``);
+* ``member.member_lookup`` — the union round's earlier-piece membership
+  test, fingerprints and sorted lookups fused (no Pallas counterpart: the
+  reference runs it as XLA ops).
 
 :mod:`.ops` is the entry point with the reference's names and contracts
 (``repro.kernels.ops``).

@@ -63,12 +63,15 @@ _SIGNATURES = {
     "repro_decode_attention_scratch_bytes": (_N, (_N, _N, _N, _N, _I)),
     "repro_decode_attention_f32": (_I, _ATTN),
     "repro_decode_attention_bf16": (_I, _ATTN),
+    "repro_member_lookup_params_bytes": (_I, ()),
+    "repro_member_lookup": (_I, (_P, _P)),
 }
 
 # kernels launched per wrapper since the last reset (the only global state
 # of the port); a run shows through these that its path went through them
 launch_counts: Dict[str, int] = {"sorted_probe": 0, "probe_pick": 0,
-                                 "segdegree": 0, "decode_attention": 0}
+                                 "segdegree": 0, "decode_attention": 0,
+                                 "member_lookup": 0}
 
 
 def reset_launch_counts() -> None:

@@ -427,3 +427,141 @@ def lm_logits_agreement(got: torch.Tensor, want: torch.Tensor,
         raise AssertionError(f"{what}: greedy agreement {out['agree']} < "
                              f"{LM_PATH_AGREE}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# earlier-piece membership lookup: candidates, pieces, live and predicate
+# masks
+# ---------------------------------------------------------------------------
+
+# (relation widths, whether consecutive relations share an attribute,
+# pieces, candidates, live share; None: no live mask).  "q5" and "uq1" have
+# the attribute counts of Q5's and UQ1's base relations and their earlier
+# pieces at the last probing join; "many_pairs" has 60 (piece, relation)
+# pairs, more than a warp's lanes, so a lane takes two; "past_pairs" (70
+# pairs) and "past_pieces" (18 pieces) pass one launch's capacities, so the
+# card runs them in two launches; "dup_window" plants salt-1 collisions
+# with other salt-2 fingerprints in a run of duplicate rows.
+_MEMBER_SHAPES = {
+    "q5": ((4, 8, 9, 16, 7, 2), True, 2, 4096, 0.05),
+    "uq1": ((4, 7, 8, 9, 16), True, 4, 4096, 0.9),
+    "one_piece": ((4, 7, 8, 9, 16), True, 1, 1000, None),
+    "dup_window": ((2, 3), False, 2, 777, 0.8),
+    "empty_relation": ((4, 7, 8), True, 3, 500, 0.8),
+    "all_dead": ((4, 8, 9, 16, 7, 2), True, 2, 1024, 0.0),
+    "all_live": ((4, 8, 9, 16, 7, 2), True, 2, 1024, 1.0),
+    "predicate": ((4, 7, 8, 9, 16), True, 3, 2048, 0.7),
+    "many_pairs": ((4, 7, 8, 9, 16), True, 12, 1500, 0.9),
+    "past_pairs": ((4, 7, 8, 9, 16), True, 14, 1500, 0.9),
+    "past_pieces": ((3, 5), True, 18, 1000, 0.9),
+}
+# the runs of pieces, one launch each, of the cases past one launch
+MEMBER_LAUNCHES = {"past_pairs": [(0, 12), (12, 14)],
+                   "past_pieces": [(0, 16), (16, 18)]}
+MEMBER_CASES = list(_MEMBER_SHAPES)
+
+_M32 = 0xFFFFFFFF
+_FNV = 16777619
+
+
+def _mix32_py(x: int, salt: int) -> int:
+    z = (x + 0x9E3779B9 * (salt + 1)) & _M32
+    z = ((z ^ (z >> 16)) * 0x85EBCA6B) & _M32
+    z = ((z ^ (z >> 13)) * 0xC2B2AE35) & _M32
+    return z ^ (z >> 16)
+
+
+def _unmix32_py(z: int, salt: int) -> int:
+    z ^= z >> 16
+    z = (z * pow(0xC2B2AE35, -1, 1 << 32)) & _M32
+    z ^= (z >> 13) ^ (z >> 26)
+    z = (z * pow(0x85EBCA6B, -1, 1 << 32)) & _M32
+    z ^= z >> 16
+    return (z - 0x9E3779B9 * (salt + 1)) & _M32
+
+
+def _fp1_collision(rng, row: np.ndarray) -> np.ndarray:
+    """Another 2-column row with the salt-1 fingerprint of ``row``."""
+    f = ((_mix32_py(int(row[0]), 1000) * _FNV) & _M32) ^ _mix32_py(
+        int(row[1]), 1001)
+    while True:
+        v0 = int(rng.integers(0, 1 << 31))
+        v1 = _unmix32_py(f ^ ((_mix32_py(v0, 1000) * _FNV) & _M32), 1001)
+        if v0 != row[0] and v1 < (1 << 31):
+            return np.array([v0, v1], np.int64)
+
+
+def member_case(name: str) -> dict:
+    """``{"rows": {attr: (B,) int32}, "acc": (B,) bool or None, "pieces":
+    [[(attrs, (n, len(attrs)) int32), ...] per piece], "preds": [(B,) bool
+    or None per piece]}``.  Each piece's relations are projections of a
+    join of its own (tuples shared in part with the other pieces), plus
+    rows of no tuple and repeated rows; candidates copy tuples of each
+    piece, of none, and tuples with one attribute moved."""
+    widths, shared, npieces, B, live = _MEMBER_SHAPES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    spans, start = [], 0
+    for w in widths:
+        spans.append(list(range(start, start + w)))
+        start += w - 1 if shared else w
+    nattr = start + (1 if shared else 0)
+    attrs = [f"c{i:02d}" for i in range(nattr)]
+    common = rng.integers(0, 1 << 31, (120, nattr))
+    tuples = [np.concatenate([common, rng.integers(0, 1 << 31,
+                                                   (180, nattr))])
+              for _ in range(npieces)]
+    pieces = []
+    for q, tq in enumerate(tuples):
+        rels = []
+        for r, span in enumerate(spans):
+            rows = np.concatenate([tq[:, span],
+                                   rng.integers(0, 1 << 31, (40, len(span))),
+                                   tq[:5, span], tq[:3, span]])
+            if name == "dup_window" and r == 0:
+                rows = np.concatenate([rows] + [
+                    _fp1_collision(rng, rows[0])[None]] * 2)
+            if name == "empty_relation" and q == 1 and r == 2:
+                rows = rows[:0]
+            rels.append((tuple(attrs[i] for i in span),
+                         rows.astype(np.int32)))
+        pieces.append(rels)
+    kind = rng.integers(0, npieces + 2, B)
+    cand = rng.integers(0, 1 << 31, (B, nattr))
+    for q, tq in enumerate(tuples):
+        sel = kind == q
+        cand[sel] = tq[rng.integers(0, tq.shape[0], int(sel.sum()))]
+    moved = kind == npieces + 1
+    src = tuples[0][rng.integers(0, tuples[0].shape[0], int(moved.sum()))]
+    src[np.arange(src.shape[0]), rng.integers(0, nattr, src.shape[0])] += 1
+    cand[moved] = src
+    if name == "dup_window":
+        # salt-1 twins of a member row: one in the relation, one not
+        x = pieces[0][0][1][0]
+        cand[:20, spans[0]] = pieces[0][0][1][-1]
+        cand[20:40, spans[0]] = _fp1_collision(rng, x)
+    acc = None if live is None else rng.random(B) < live
+    preds = [None] * npieces
+    if name == "predicate":
+        preds = [rng.random(B) < 0.5 if q != 1 else None
+                 for q in range(npieces)]
+    return {"rows": {a: cand[:, i].astype(np.int32)
+                     for i, a in enumerate(attrs)},
+            "acc": acc, "pieces": pieces, "preds": preds}
+
+
+def member_plan(case: dict, device) -> Tuple[object, Dict[str, torch.Tensor],
+                                             object, List[object]]:
+    """``(plan, rows, acc, preds)`` of a :func:`member_case` on ``device``."""
+    from .member import MemberPlan, relation_index
+    plan = MemberPlan([
+        [relation_index(a, [np.ascontiguousarray(rows[:, i])
+                            for i in range(len(a))], device)
+         for a, rows in piece]
+        for piece in case["pieces"]])
+    rows = {a: torch.as_tensor(c, device=device)
+            for a, c in case["rows"].items()}
+    acc = (None if case["acc"] is None
+           else torch.as_tensor(case["acc"], device=device))
+    preds = [None if m is None else torch.as_tensor(m, device=device)
+             for m in case["preds"]]
+    return plan, rows, acc, preds

@@ -102,9 +102,10 @@ def test_merge_streams_equals_reference():
     assert np.array_equal(got.home, want.home)
     assert np.array_equal(got.fingerprint, want.fingerprint)
     # the port's stats hold every counter of the reference's, and the fused
-    # engine's residual misses (none here)
+    # engine's residual misses and member lookups (none here)
     stats = got.stats.as_dict()
     assert stats.pop("residual_misses") == 0
+    assert stats.pop("member_lookups") == 0
     assert stats == want.stats.as_dict()
     assert got.stats.iterations == sum(10 * k + 1 for k in range(3))
 

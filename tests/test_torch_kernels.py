@@ -16,7 +16,7 @@ from repro.kernels import ref
 from repro.kernels.searchsorted import searchsorted_pallas
 from repro.kernels.walk import walk_hop_pallas
 
-from repro_torch.kernels import probe
+from repro_torch.kernels import member, probe
 
 from repro_torch.kernels.cases import (ONE_MINUS, PALLAS_PROBE_CASES,
                                        PROBE_CARD_CASES, PROBE_CASES,
@@ -115,8 +115,11 @@ def test_cpu_tensors_launch_nothing():
     q = torch.tensor([1, 3, 99], dtype=torch.int32)
     probe.sorted_probe(keys, q)
     probe.probe_pick(keys, q, torch.rand(3))
+    plan = member.MemberPlan([[member.relation_index(("a",), [keys], "cpu")]])
+    member.member_lookup(plan, {"a": q})
     assert probe.launch_counts == {"sorted_probe": 0, "probe_pick": 0,
-                                   "segdegree": 0, "decode_attention": 0}
+                                   "segdegree": 0, "decode_attention": 0,
+                                   "member_lookup": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "u_dtype"])

@@ -14,7 +14,10 @@ the plain versions on the same uniforms; the walk case holds every UQ1
 wander-join walk through ``probe_pick`` equal to the plain walk.  The
 device-loop cases capture the union engine's round as a CUDA graph
 (``fused_rounds="device"``) and hold it bit-equal to the host loop, on UQ1
-under both plans and on UQ2 rejection mode.  Decode attention runs every
+under both plans and on UQ2 rejection mode.  ``member_lookup`` runs every
+case of ``cases.MEMBER_CASES`` against its plain version, and the device
+loop with it equals the loop with the plain version forced, on UQ4's
+cyclic union and UQ2's predicates.  Decode attention runs every
 case of ``cases.ATTENTION_CASES``, the attention shapes of every config
 among them; a shape the kernel does not take must raise and launch
 nothing; and nine ``decode_step``s of the smoke configs of every family
@@ -27,12 +30,14 @@ Without a card every test here skips.
 import pytest
 import torch
 
-from repro_torch.kernels import attention, probe, segdegree
-from repro_torch.kernels.cases import (ATTENTION_CASES, PROBE_CARD_CASES,
+from repro_torch.kernels import attention, member, probe, segdegree
+from repro_torch.kernels.cases import (ATTENTION_CASES, MEMBER_CASES,
+                                       MEMBER_LAUNCHES, PROBE_CARD_CASES,
                                        PROBE_CASES, SEGDEGREE_CARD_CASES,
-                                       SEGDEGREE_CASES, attention_case,
-                                       attention_tol, key_dtypes,
-                                       lm_logits_agreement, probe_case,
+                                       SEGDEGREE_CASES,
+                                       attention_case, attention_tol,
+                                       key_dtypes, lm_logits_agreement,
+                                       member_case, member_plan, probe_case,
                                        probe_uniforms, segdegree_card_case)
 
 
@@ -60,6 +65,29 @@ def test_kernels_on_card_equal_plain(name):
         assert torch.equal(pos, pos_p) and torch.equal(d, d_p)
         assert probe.launch_counts["sorted_probe"] == before["sorted_probe"] + 1
         assert probe.launch_counts["probe_pick"] == before["probe_pick"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MEMBER_CASES)
+def test_member_lookup_on_card_equals_plain(name):
+    """Bit-equal verdicts and lookup counts, one launch a call (two past
+    one launch's capacities); ``contains`` of each piece on the card
+    equals the plain one."""
+    _need_card()
+    plan, rows, acc, preds = member_plan(member_case(name), "cuda")
+    before = probe.launch_counts["member_lookup"]
+    out, lookups = member.member_lookup(plan, rows, acc, preds)
+    launched = probe.launch_counts["member_lookup"] - before
+    out_p, lookups_p = member.member_lookup_plain(plan, rows, acc, preds)
+    torch.cuda.synchronize()
+    assert launched == len(MEMBER_LAUNCHES.get(name, [(0, 0)]))
+    assert torch.equal(out, out_p)
+    assert int(lookups) == int(lookups_p)
+    for q, piece in enumerate(plan.pieces):
+        one = member.MemberPlan([piece])
+        got = member.contains(one, rows, preds[q])
+        want = member.contains_plain(piece, rows, preds[q])
+        assert torch.equal(got, want), q
 
 
 def _segdegree_kernels(n):
@@ -409,3 +437,56 @@ def test_flash_attention_cv_grads_on_card_equal_cpu(causal, window, cap,
     for got, want in zip(grads["cuda"], grads["cpu"]):
         np.testing.assert_allclose(got, want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["uq4", "uq2_rejection", "uq1_15"])
+def test_device_loop_with_member_lookup_equals_plain_route(workload,
+                                                           monkeypatch):
+    """The captured round with ``member_lookup`` and the same round with
+    the plain version forced: the same samples, homes, stats (member
+    lookups included), per-piece counters, carry and Philox offset, on a
+    cyclic union, on UQ2's rejection predicates (masks passed in) and on
+    a UQ1 of 15 joins, whose last two probing joins (65 and 70 relations)
+    pass one launch's capacities and take two launches each."""
+    _need_card()
+    from repro_torch.core.framework import estimate_union, warmup
+    from repro_torch.core.union_sampler import SetUnionSampler
+    from repro_torch.data.workloads import uq1, uq2, uq4
+    wl = {"uq4": lambda: uq4(scale=0.5, seed=0),
+          "uq2_rejection": lambda: uq2(scale=1.0, seed=0,
+                                       pred_mode="rejection"),
+          "uq1_15": lambda: uq1(scale=0.05, seed=0, n_joins=15)}[workload]()
+    # the exact warm-up's intersection terms grow as 2^joins
+    method = "histogram" if workload == "uq1_15" else "exact"
+    cover = estimate_union(warmup(wl.cat, wl.joins,
+                                  method=method).oracle).cover
+
+    def run():
+        s = SetUnionSampler(wl.cat, wl.joins, cover, seed=13, device="cuda",
+                            round_batch=1024)
+        return s, [s.sample(n) for n in (2048, 999, 1500)]
+
+    kern, got = run()
+    cb = kern.engine._buffers[2048]
+    runs = [len(kern.engine._member_plan(j).launches)
+            for j in range(1, len(wl.joins))]
+    assert runs == ([1] * 12 + [2, 2] if workload == "uq1_15"
+                    else [1] * (len(wl.joins) - 1))
+    assert cb.replay_launches["member_lookup"] == sum(runs)
+    monkeypatch.setattr(member, "member_lookup", member.member_lookup_plain)
+    plain, want = run()
+    assert plain.engine._buffers[2048].replay_launches["member_lookup"] == 0
+    for a, b in zip(got, want):
+        for attr in a.attrs:
+            assert (a.rows[attr] == b.rows[attr]).all()
+        assert (a.home == b.home).all()
+    assert kern.stats.as_dict() == plain.stats.as_dict()
+    assert kern.stats.member_lookups > 0
+    ke, pe = kern.engine, plain.engine
+    assert (ke.piece_stats == pe.piece_stats).all()
+    for f in ("owed", "dead", "streak", "head", "count"):
+        assert torch.equal(getattr(ke._state, f), getattr(pe._state, f)), f
+    assert torch.equal(ke._state.bank[:, :-1], pe._state.bank[:, :-1])
+    assert (ke.uniforms.generator.get_offset()
+            == pe.uniforms.generator.get_offset())
